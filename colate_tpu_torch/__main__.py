@@ -1,0 +1,3 @@
+from colate_tpu_torch.cli import main
+
+raise SystemExit(main())
