@@ -3,14 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from colate_tpu_torch/csrc/, holds it
-against its plain torch twin on the card, checks the EM against the host
-float64 EM, then drives mode ``mut`` through the port's CLI at 1024
-bootstrap replicates on a synthetic 4 x 300k-row fixture (the north-star
-fixture of bench.py) and checks the ``.coal`` it writes.  Prints the
-measured times, one JSON line about the kernels, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises; the script
-exits non-zero without a result when torch sees no CUDA device.
+Builds the port's CUDA kernels from colate_tpu_torch/csrc/ (one nvcc per
+source, started together) and:
+
+1-6. holds the EM kernel against its plain torch twin on the card, checks
+     the EM against the host float64 EM, drives mode ``mut`` through the
+     port's CLI at 1024 bootstrap replicates on a synthetic 4 x 300k-row
+     fixture (the north-star fixture of bench.py), binning on the host,
+     checks the ``.coal`` it writes, and times the EM;
+7.   holds the binning kernel against its plain torch version and the host
+     float64 binning on the card, and checks that a stream split at a
+     block boundary bins bitwise identically;
+8.   bins 22.2M sites in 125 blocks (the whole-genome site count, with
+     bench.py's generator) and times the kernel, its plain version, the
+     port's binning end to end and the host binning;
+9.   drives mode ``mut --binning device`` (and once ``sharded``) through
+     the CLI on the north-star fixture at 1024 replicates.
+
+Prints the measured times, one JSON line about the kernels, and as its
+last line ``{"ok": true, "device": {...}}``.  Any failed check raises; the
+script exits non-zero without a result when torch sees no CUDA device.
 
     python3 chip_smoke.py --profile
 
@@ -23,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import filecmp
 import io
 import json
 import os
@@ -35,6 +48,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BINS = "3,7,0.2"
 B_E2E = 1024
 K = 8
+N_WHOLE_GENOME = 22_200_000  # sites of the reference's whole-genome fixture
 
 
 def check(ok: bool, what: str) -> None:
@@ -161,10 +175,16 @@ def main(argv: list[str] | None = None) -> int:
     sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from colate_tpu_torch import cli
-    from colate_tpu_torch.models.mut_em import bootstrap_counts, mut_epochs, suffstats
-    from colate_tpu_torch.ops import em_kernel
+    from colate_tpu_torch.models.mut_em import (
+        bootstrap_counts, join_tmp_inputs, mut_epochs, suffstats,
+    )
+    from colate_tpu_torch.ops import bin_kernel, em_kernel
     from colate_tpu_torch.ops.em import run_em, run_em_native
+    from colate_tpu_torch.pipeline.binning import bin_sites_analytic, bin_sites_analytic_native
+    from helpers.sites import bench_sites, beyond_table_sites, hist_rel, synthetic_sites
     from helpers.synth import make_fixture
 
     dev = torch.device("cuda")
@@ -175,11 +195,16 @@ def main(argv: list[str] | None = None) -> int:
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"card: {card}", flush=True)
 
-    built = em_kernel.kernel_library()
-    print(f"em_step.cu built in {built.seconds:.3f} s -> {os.path.relpath(built.path, REPO)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(m.kernel_library) for m in (em_kernel, bin_kernel)]
+        builds = [f.result() for f in builds]
+    print(f"kernels built in {time.perf_counter() - t0:.3f} s", flush=True)
+    for built in builds:
+        print(f"{os.path.basename(built.path)}: nvcc {built.seconds:.3f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="colate_smoke_") as tmp:
         # the north-star fixture and the main path's configuration
@@ -330,6 +355,156 @@ def main(argv: list[str] | None = None) -> int:
             profile_em(lambda: em_kernel.run_em_kernel(epochs, init, s, n), smi)
             time_processes(argv, tmp, smi)
 
+        # ---- 7. the binning kernel against its plain version and native f64 ----
+        bin_abs = 0.0
+        cases = {
+            "bench generator 1M sites, 125 blocks": (bench_sites(1_000_000), 0.0),
+            "age 30": (synthetic_sites(age=30.0, seed=1), 30.0),
+            "unsorted ids, 4000 sites": (synthetic_sites(n=4000, sorted_blocks=False), 0.0),
+            "3000 blocks": (synthetic_sites(n=20000, nb=3000, seed=4), 0.0),
+            "empty": (synthetic_sites(n=0, nb=0), 0.0),
+            "3 sites": (synthetic_sites(n=3, nb=1, seed=5), 0.0),
+            "ages beyond the table": (beyond_table_sites(), 0.0),
+            "north-star fixture (the main path's sites)": (join_tmp_inputs(cfg), 0.0),
+        }
+        for name, (sites, age) in cases.items():
+            packed = bin_kernel.pack_sites(sites, age).to(dev)
+            hk = bin_kernel.bin_chunks(packed)
+            torch.cuda.synchronize()
+            hp = bin_kernel.bin_chunks_reference(packed)
+            hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+            nb = sites.num_blocks
+            check(hk.shape == (nb, 4, 185), f"{name}: kernel histograms {hk.shape}")
+            check(bool(np.isfinite(hk).all()), f"{name}: finite kernel histograms")
+            ours = [hk[:, j] for j in range(4)]
+            rel_plain = hist_rel(ours, [hp[:, j] for j in range(4)])
+            rel_native = hist_rel(ours, bin_sites_analytic_native(sites, age))
+            if hk.size:
+                bin_abs = max(bin_abs, float(np.abs(hk - hp).max()))
+            e2e = bin_sites_analytic(sites, age, dev)
+            same = all(np.array_equal(a, b) for a, b in zip(e2e, ours))
+            print(f"bin kernel, {name} ({len(sites)} sites, {nb} blocks, {packed.n_chunks} "
+                  f"chunks): vs plain {rel_plain:.3e} (<= 2e-5), vs native f64 "
+                  f"{rel_native:.3e} (<= 5e-5)", flush=True)
+            check(rel_plain <= 2e-5, f"{name}: bin kernel within 2e-5 of its plain version")
+            check(rel_native <= 5e-5, f"{name}: bin kernel within 5e-5 of native f64")
+            check(same, f"{name}: bin_sites_analytic on the card gives the kernel's sums")
+        sites = cases["bench generator 1M sites, 125 blocks"][0]
+        whole = bin_sites_analytic(sites, 0.0, dev)
+        cut = int(np.searchsorted(sites.block_id, 60))
+        halves = [bin_sites_analytic(type(sites)(
+            age_begin=sites.age_begin[lo:hi], age_end=sites.age_end[lo:hi],
+            w_shared=sites.w_shared[lo:hi], w_notshared=sites.w_notshared[lo:hi],
+            block_id=sites.block_id[lo:hi], num_blocks=sites.num_blocks,
+        ), 0.0, dev) for lo, hi in ((0, cut), (cut, len(sites)))]
+        check(all(np.array_equal(w, a + b) for w, a, b in zip(whole, *halves)),
+              "a split at a block boundary bins bitwise identically")
+        print(f"bin kernel: 1M sites split at site {cut} (block 60) bitwise equal", flush=True)
+        del cases, sites, whole, halves
+
+        # ---- 8. the whole-genome site count: 22.2M sites in 125 blocks ----
+        t0 = time.perf_counter()
+        sites = bench_sites(N_WHOLE_GENOME)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed_host = bin_kernel.pack_sites(sites)
+        t_pack = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = packed_host.to(dev)
+        torch.cuda.synchronize()
+        t_h2d = time.perf_counter() - t0
+        bin_ms = cuda_ms(lambda: bin_kernel.bin_chunks(packed), 5)
+        bin_plain_ms = cuda_ms(lambda: bin_kernel.bin_chunks_reference(packed), 1)
+        hk = bin_kernel.bin_chunks(packed).cpu().numpy()
+        hp = bin_kernel.bin_chunks_reference(packed).cpu().numpy()
+        bin_abs = max(bin_abs, float(np.abs(hk - hp).max()))
+        ours = [hk[:, j] for j in range(4)]
+        rel_plain = hist_rel(ours, [hp[:, j] for j in range(4)])
+        t_native, native = [], None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            native = bin_sites_analytic_native(sites)
+            t_native.append(time.perf_counter() - t0)
+        rel_native = hist_rel(ours, native)
+        t_e2e = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            e2e = bin_sites_analytic(sites, 0.0, dev)
+            t_e2e.append(time.perf_counter() - t0)
+        same = all(np.array_equal(a, b) for a, b in zip(e2e, ours))
+        n_wg = len(sites)
+        rate = lambda sec: n_wg / sec / 1e6
+        print(f"whole genome: {n_wg} sites, {sites.num_blocks} blocks, {packed.n_chunks} chunks "
+              f"(generated in {t_gen:.3f} s) [{smi}]", flush=True)
+        print(f"  kernel, stream resident on the card: {bin_ms:.4f} ms ({rate(bin_ms / 1e3):.1f}M sites/s)")
+        print(f"  plain torch version on the card:     {bin_plain_ms:.4f} ms "
+              f"({rate(bin_plain_ms / 1e3):.1f}M sites/s)")
+        print(f"  host packing {t_pack:.4f} s ({rate(t_pack):.1f}M sites/s), host-to-device copy "
+              f"{t_h2d:.4f} s of {packed.fv.nbytes + packed.meta.nbytes} bytes")
+        print(f"  bin_sites_analytic end to end (pack + copy + kernel + copy back): "
+              f"{', '.join(f'{t:.4f}' for t in t_e2e)} s ({rate(min(t_e2e)):.1f}M sites/s)")
+        print(f"  native cn_bin_analytic on the host: {', '.join(f'{t:.4f}' for t in t_native)} s "
+              f"({rate(min(t_native)):.1f}M sites/s)")
+        print(f"  kernel vs plain {rel_plain:.3e} (<= 2e-5), vs native f64 {rel_native:.3e} "
+              f"(<= 5e-5), max abs vs plain {bin_abs:.3e}", flush=True)
+        check(rel_plain <= 2e-5, "whole genome: bin kernel within 2e-5 of its plain version")
+        check(rel_native <= 5e-5, "whole genome: bin kernel within 5e-5 of native f64")
+        check(same, "whole genome: bin_sites_analytic gives the kernel's sums")
+        del sites, packed_host, packed, native, e2e, hk, hp, ours
+
+        # ---- 9. the main path of this slice: mode mut --binning device ----
+        native_coal = read_coal_rates(os.path.join(tmp, "out_warm.coal"))
+        os.environ["COLATE_TPU_LOG"] = "json"
+        runs9 = {}
+        for phase in ("cold", "warm", "sharded"):
+            out_prefix = os.path.join(tmp, f"bin_{phase}")
+            binning = "sharded" if phase == "sharded" else "device"
+            log = io.StringIO()
+            em_kernel.launches = 0
+            bin_kernel.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(log):
+                rc = cli.main(argv + ["--binning", binning, "-o", out_prefix])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_bin, n_em = bin_kernel.launches, em_kernel.launches
+            events = {}
+            for line in log.getvalue().splitlines():
+                if line.startswith("{"):
+                    rec = json.loads(line)
+                    events[rec["event"]] = rec
+            check(rc == 0, f"--binning {binning} {phase} CLI run exits 0 (got {rc})")
+            check(events["mut_suffstats"]["binning"] == "cuda-kernel:float32",
+                  f"{phase} run binned with the CUDA kernel "
+                  f"({events['mut_suffstats']['binning']})")
+            check(events["mut_em"]["provider"] == "cuda-kernel:float32", f"{phase} run's EM kernel")
+            check(n_bin > 0 and n_em > 0, f"{phase} run launched both kernels ({n_bin}, {n_em})")
+            coal = read_coal_rates(out_prefix + ".coal")
+            check(coal.shape == (B_E2E, E) and bool(np.isfinite(coal).all()),
+                  f"{phase} .coal shape {coal.shape}, finite")
+            real = native_coal > 1e-4
+            rel = float(np.max(np.abs(coal[real] - native_coal[real]) / native_coal[real]))
+            check(rel <= 1e-3, f"{phase} .coal within 1e-3 of the natively binned run ({rel:.3e})")
+            st = events["mut_done"]["timings"]
+            runs9[phase] = dict(wall=wall, bin_launches=n_bin, em_launches=n_em, timings=st)
+            print(f"mode mut --binning {binning} B={B_E2E} {phase}: wall {wall:.4f} s; parse "
+                  f"{st['parse']:.4f} s, binning {st['binning']:.4f} s, bootstrap "
+                  f"{st['bootstrap']:.4f} s, em {st['em']:.4f} s; {n_bin} bin and {n_em} EM kernel "
+                  f"launches; .coal vs --binning auto (native) rel {rel:.3e} (<= 1e-3) [{smi}]",
+                  flush=True)
+        del os.environ["COLATE_TPU_LOG"]
+        check(filecmp.cmp(os.path.join(tmp, "bin_warm.coal"), os.path.join(tmp, "bin_sharded.coal"),
+                          shallow=False), "--binning sharded writes --binning device's .coal")
+        stats = {}
+        for binning in ("device", "sharded"):
+            c = cli.mut_config(cli.build_parser().parse_args(
+                argv + ["--binning", binning, "-o", os.path.join(tmp, "cfg")]))
+            stats[binning] = suffstats(c, c.seed, device=dev)
+        check(all(np.array_equal(a, b) for a, b in zip(stats["device"][:4], stats["sharded"][:4])),
+              "--binning sharded bins bitwise as --binning device")
+        print("--binning sharded: histograms and .coal bitwise equal to --binning device", flush=True)
+
     check("jax" not in sys.modules, "the port ran without loading JAX")
 
     print(json.dumps({"kernels": [{
@@ -341,6 +516,15 @@ def main(argv: list[str] | None = None) -> int:
         "max_abs_err": max_abs,
         "ms": times[1024]["kernel_ms"],
         "plain_ms": times[1024]["twin_ms"],
+    }, {
+        "name": "bin_hist_f32",
+        "route": "cuda",
+        "source": "colate_tpu_torch/csrc/bin_hist.cu",
+        "replaces": "colate_tpu/ops/bin_pallas.py:89",
+        "launches": runs9["cold"]["bin_launches"],
+        "max_abs_err": bin_abs,
+        "ms": bin_ms,
+        "plain_ms": bin_plain_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

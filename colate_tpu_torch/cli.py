@@ -5,6 +5,11 @@ The flag surface is colate_tpu's (``colate_tpu.cli._build_parser``) plus
 flags that are not yet exit non-zero with an error block naming the
 ROADMAP item that ports them.  ``--torch_device cuda`` on a machine
 without a card raises: the port never drops to the CPU by itself.
+
+``--binning device`` and ``--binning sharded`` bin ``.colate.in`` inputs
+on ``--torch_device``.  Without ``--devices`` (multi-GPU is not ported)
+``sharded`` is one shard: the block-aligned kernel over the whole stream,
+which is what ``device`` runs, so the two write the same histograms.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ def build_parser():
     p.prog = "colate-tpu-torch"
     p.description = "Coalescence-rate engine on PyTorch/CUDA (Colate-compatible)"
     p.add_argument("--torch_device", choices=["cuda", "cpu"], default="cuda",
-                   help="device of the EM (cuda: the hand-written kernel "
-                        "for --em_dtype float32)")
+                   help="device of the EM and of --binning device|sharded "
+                        "(cuda: the hand-written kernels; cpu: their plain "
+                        "torch versions)")
     return p
 
 
@@ -56,8 +62,6 @@ def _dispatch(argv: list[str] | None = None) -> int:
         return _not_ported("--checkpoint", "--checkpoint")
     if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
         return _not_ported("--coordinator/--num_processes/--process_id", "multi-process")
-    if args.binning in ("device", "sharded"):
-        return _not_ported(f"--binning {args.binning}", "binning")
     if args.torch_device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--torch_device cuda, but torch sees no CUDA device; "

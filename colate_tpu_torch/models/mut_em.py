@@ -1,10 +1,21 @@
-"""Mode ``mut`` on PyTorch: parse and bin on the host, EM on the device.
+"""Mode ``mut`` on PyTorch: parse on the host, bin on the host or the
+device, EM on the device.
 
 Port of colate_tpu/models/mut_em.py (run_mut, finish_from_suffstats,
 run_mut_and_write) without its mesh and checkpoint branches.  The host
 stages are colate_tpu's own and are imported, not copied: the parsers and
 the native C++ join+binning (``compute_suffstats``), the numpy bootstrap,
-the epoch grid and the ``.coal`` writer.  The EM is this package's:
+the epoch grid and the ``.coal`` writer.  The binning is one of:
+
+- ``native``: the host C++ inside ``compute_suffstats`` (``--binning
+  auto|native``);
+- ``mc_parity(host)``: the reference's draw replay (``--sampling
+  mc_parity``, whatever ``--binning`` says);
+- ``cuda-kernel:float32``: ``.colate.in`` inputs under ``--binning
+  device|sharded`` on a card, the CUDA kernel of ops/bin_kernel.py;
+- ``torch-twin:float32(cpu)``: the same on the CPU, its plain torch version.
+
+The EM is this package's:
 
 - ``native``: the host C++ f64 EM, for B <= EM_HOST_MAX_B under ``auto``;
 - ``cuda-kernel:float32``: the fused CUDA step (ops/em_kernel.py);
@@ -22,14 +33,19 @@ import torch
 
 from colate_tpu.config import COLATE_MAT_NORM, EM_HOST_MAX_B, INITIAL_COAL_RATE, MutRunConfig, age_bin_centers
 from colate_tpu.formats.coal import write_mut_coal
+from colate_tpu.formats.colate_in import read_colate_in
 from colate_tpu.formats.colate_mat import read_colate_mat, write_colate_mat
+from colate_tpu.formats.fasta import read_mask
+from colate_tpu.formats.mut import MutTable
 from colate_tpu.hostrng import MT19937
 from colate_tpu.models.mut_em import MutResult, compute_suffstats, resolve_tmp_inputs
 from colate_tpu.ops.bootstrap import bootstrap_weights, redistribute_emp, weighted_counts
 from colate_tpu.ops.epochs import epochs_from_bins, epochs_from_coal_file
+from colate_tpu.pipeline.join import join_tmptmp
 from colate_tpu.utils.progress import log_event
 from colate_tpu_torch.ops.em import run_em, run_em_native
 from colate_tpu_torch.ops.em_kernel import run_em_kernel
+from colate_tpu_torch.pipeline.binning import bin_sites_analytic
 
 # EM_HOST_MAX_B (B <= 800 runs the host EM under --em_dtype auto) is the
 # JAX package's threshold, kept so that both packages dispatch alike.  It
@@ -59,29 +75,84 @@ def run_mut(cfg: MutRunConfig, device: str | torch.device = "cuda") -> MutResult
             cfg, None, timings, device, rng=rng, seed=seed,
             counts=(shared_counts, notshared_counts),
         )
-    stats = suffstats(cfg, seed, rng=rng, timings=timings)
+    stats = suffstats(cfg, seed, rng=rng, timings=timings, device=device)
     return finish_from_suffstats(cfg, stats, timings, device, rng=rng, seed=seed)
 
 
-def suffstats(cfg: MutRunConfig, seed: int, rng=None, timings: dict | None = None):
-    """Per-block sufficient statistics of cfg's inputs, parsed, joined and
-    binned by the native host library: colate_tpu's ``compute_suffstats``
-    tuple (sh_b, ns_b, se_b, ne_b, num_sites, num_blocks)."""
+def bins_on_device(cfg: MutRunConfig) -> bool:
+    """Whether cfg's sites are binned by the port on the torch device:
+    ``--binning device|sharded`` outside ``--sampling mc_parity``, which
+    bins by its draw replay on the host whatever ``--binning`` says."""
+    return cfg.binning in ("device", "sharded") and cfg.sampling != "mc_parity"
+
+
+def binning_route(cfg: MutRunConfig, device: torch.device) -> str:
+    """Which binning a run of cfg on ``device`` takes (see the module doc)."""
+    if cfg.sampling == "mc_parity":
+        return "mc_parity(host)"
+    if bins_on_device(cfg):
+        return "cuda-kernel:float32" if device.type == "cuda" else f"torch-twin:float32({device.type})"
+    return "native"
+
+
+def suffstats(cfg: MutRunConfig, seed: int, rng=None, timings: dict | None = None,
+              device: str | torch.device = "cuda"):
+    """Per-block sufficient statistics of cfg's inputs: the tuple (sh_b,
+    ns_b, se_b, ne_b, num_sites, num_blocks) of colate_tpu's
+    ``compute_suffstats``.  Under :func:`bins_on_device` the port decodes,
+    joins and bins ``.colate.in`` inputs itself, binning on ``device``;
+    otherwise the native host library parses, joins and bins."""
     from colate_tpu import native
 
+    timings = {} if timings is None else timings
+    if bins_on_device(cfg):
+        if cfg.target_bcf or cfg.target_bam or not (cfg.target_tmp and cfg.reference_tmp):
+            raise ValueError(
+                f"--binning {cfg.binning} is ported for .colate.in inputs "
+                "(--target_tmp/--reference_tmp) only; BCF/BAM inputs are "
+                "ROADMAP queue 1, item 4 (device binning of BCF/BAM inputs)"
+            )
+        t0 = time.time()
+        sites = join_tmp_inputs(cfg)
+        timings["parse"] = time.time() - t0
+        t0 = time.time()
+        # every parser forces age=0 (e.g. coal.cpp:597-598, 2073-2074)
+        sh_b, ns_b, se_b, ne_b = bin_sites_analytic(sites, 0.0, device)
+        timings["binning"] = time.time() - t0
+        return sh_b, ns_b, se_b, ne_b, len(sites), sites.num_blocks
     # without the native library compute_suffstats would bin through the
     # JAX program (colate_tpu/pipeline/binning.py:bin_sites_analytic)
     if native.load() is None:
+        so = os.environ.get("COLATE_NATIVE_SO", native._SO)
         raise RuntimeError(
-            "mode mut needs the native library (colate_tpu/native): the "
-            "device binning is not ported yet"
+            f"native library failed to build or load: {so}; mode mut with "
+            f"--binning {cfg.binning} needs it (--binning device does not)"
         )
     age, ref_age = _ages(cfg)
     chroms, mut_files, tmask_files, rmask_files = resolve_tmp_inputs(cfg)
     return compute_suffstats(
         cfg, chroms, mut_files, tmask_files, rmask_files, age, ref_age,
-        cfg.sampling == "mc_parity", rng, seed, {} if timings is None else timings,
+        cfg.sampling == "mc_parity", rng, seed, timings,
     )
+
+
+def join_tmp_inputs(cfg: MutRunConfig):
+    """The accepted sites (a colate_tpu ``JoinedSites``) of cfg's
+    ``.colate.in`` inputs: the reference's staged decode and join
+    (colate_tpu/models/mut_em.py:205-248, without the native prefilter),
+    all of it colate_tpu's host code."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    age, ref_age = _ages(cfg)
+    chroms, mut_files, tmask_files, rmask_files = resolve_tmp_inputs(cfg)
+    tmasks = [read_mask(f) for f in tmask_files] if tmask_files else None
+    rmasks = [read_mask(f) for f in rmask_files] if rmask_files else None
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fut_t = ex.submit(read_colate_in, cfg.target_tmp)
+        fut_r = ex.submit(read_colate_in, cfg.reference_tmp)
+        target, reference = fut_t.result(), fut_r.result()
+    mut_tables = [MutTable.read(f) for f in mut_files]
+    return join_tmptmp(chroms, mut_tables, target, reference, tmasks, rmasks, age, ref_age)
 
 
 def bootstrap_counts(cfg: MutRunConfig, stats, seed: int, rng=None):
@@ -144,6 +215,7 @@ def finish_from_suffstats(
         sites=num_sites,
         blocks=num_blocks,
         bootstraps=B,
+        binning="colate_mat" if stats is None else binning_route(cfg, device),
         sec_parse=timings.get("parse", 0.0),
         sec_binning=timings.get("binning", 0.0),
         sec_bootstrap=timings.get("bootstrap", 0.0),

@@ -1,17 +1,21 @@
-"""The CUDA kernel of the port on the card (marker ``cuda``; skips without
+"""The CUDA kernels of the port on the card (marker ``cuda``; skips without
 a CUDA device).  Imports no JAX, so it also runs on a machine without it:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (tests/conftest.py imports JAX; ``--noconftest`` skips it.)
 
-Tolerances: the kernel against its plain torch twin, both on the card,
+Tolerances: the EM kernel against its plain torch twin, both on the card,
 those of tests/test_em_pallas.py (one 8-iteration chunk: rates 1e-4, f64
 log-likelihood 3e-6; the two differ in reduction order and in CUDA's
 against torch's expf/expm1f); runs to convergence against the host f64 EM
-the f32 tiers of tests/test_em_f32.py:34-35.
+the f32 tiers of tests/test_em_f32.py:34-35.  The binning kernel against
+its plain version within 2e-5 of each histogram's max and against the host
+f64 binning within 5e-5 (tests/test_bin_pallas.py's bounds: both bin in
+float32 per site, in another order of sums).
 """
 
+import filecmp
 import os
 
 import numpy as np
@@ -21,9 +25,12 @@ import torch
 from colate_tpu.config import INITIAL_COAL_RATE
 from colate_tpu.formats.coal import CoalFile
 from colate_tpu.ops.epochs import epochs_from_bins
+from colate_tpu.pipeline.join import JoinedSites
 from colate_tpu_torch import cli
-from colate_tpu_torch.ops import em_kernel
+from colate_tpu_torch.ops import bin_kernel, em_kernel
 from colate_tpu_torch.ops.em import run_em, run_em_native
+from colate_tpu_torch.pipeline.binning import bin_sites_analytic, bin_sites_analytic_native
+from helpers.sites import bench_sites, beyond_table_sites, hist_rel, synthetic_sites
 from test_em_pallas import _synthetic_counts
 
 pytestmark = pytest.mark.cuda
@@ -206,3 +213,63 @@ def test_kernel_chunk_matches_f64(card, fix):
     strong, weak = _tiers(r32.cpu().numpy().astype(np.float64), r64)
     assert strong <= 1e-4
     assert weak <= 1e-4
+
+
+# ---- the binning kernel ----
+
+
+BIN_CASES = {  # name: (sites, age)
+    "bench-1M-125": lambda: (bench_sites(1_000_000), 0.0),
+    "age30": lambda: (synthetic_sites(age=30.0, seed=1), 30.0),
+    "unsorted-4000": lambda: (synthetic_sites(n=4000, sorted_blocks=False), 0.0),
+    "blocks-3000": lambda: (synthetic_sites(n=20000, nb=3000, seed=4), 0.0),
+    "empty": lambda: (synthetic_sites(n=0, nb=0), 0.0),
+    "three-sites": lambda: (synthetic_sites(n=3, nb=1, seed=5), 0.0),
+    "beyond-table": lambda: (beyond_table_sites(), 0.0),
+}
+
+
+@pytest.mark.parametrize("name", list(BIN_CASES))
+def test_bin_kernel_matches_plain_and_native(card, name):
+    sites, age = BIN_CASES[name]()
+    packed = bin_kernel.pack_sites(sites, age).to(card)
+    before = bin_kernel.launches
+    hk = bin_kernel.bin_chunks(packed)
+    torch.cuda.synchronize()
+    assert bin_kernel.launches == before + (packed.n_chunks > 0)
+    hp = bin_kernel.bin_chunks_reference(packed)
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    assert hk.shape == (sites.num_blocks, 4, 185) and np.isfinite(hk).all()
+    ours = [hk[:, j] for j in range(4)]
+    assert hist_rel(ours, [hp[:, j] for j in range(4)]) <= 2e-5
+    assert hist_rel(ours, bin_sites_analytic_native(sites, age)) <= 5e-5
+
+
+def test_bin_kernel_split_at_a_block_boundary_is_bitwise(card):
+    sites = bench_sites(200_000)
+    whole = bin_sites_analytic(sites, 0.0, card)
+    cut = int(np.searchsorted(sites.block_id, 60))
+    halves = [bin_sites_analytic(JoinedSites(
+        age_begin=sites.age_begin[lo:hi], age_end=sites.age_end[lo:hi],
+        w_shared=sites.w_shared[lo:hi], w_notshared=sites.w_notshared[lo:hi],
+        block_id=sites.block_id[lo:hi], num_blocks=sites.num_blocks,
+    ), 0.0, card) for lo, hi in ((0, cut), (cut, len(sites)))]
+    for w, a, b in zip(whole, *halves):
+        np.testing.assert_array_equal(w, a + b)
+
+
+def test_cli_binning_device_on_the_card(card, fix, tmp_path):
+    """--binning device on the card against --binning auto (host f64
+    binning), both with the f64 EM: identified rates within 1e-4, weak
+    ones within 1e-3; --binning sharded writes the same bytes."""
+    host = _run(fix, str(tmp_path / "host"), "--em_dtype", "float64", "--torch_device", "cuda")
+    before = bin_kernel.launches
+    dev = _run(fix, str(tmp_path / "dev"), "--em_dtype", "float64", "--torch_device", "cuda",
+               "--binning", "device")
+    assert bin_kernel.launches > before
+    rel = np.abs(dev - host) / np.maximum(np.abs(host), 1e-300)
+    assert rel[host >= 1e-4].max() <= 1e-4
+    assert rel[host >= 1e-6].max() <= 1e-3
+    _run(fix, str(tmp_path / "sharded"), "--em_dtype", "float64", "--torch_device", "cuda",
+         "--binning", "sharded")
+    assert filecmp.cmp(str(tmp_path / "dev.coal"), str(tmp_path / "sharded.coal"), shallow=False)

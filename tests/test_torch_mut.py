@@ -6,12 +6,17 @@ so f64 and mc_parity runs must write a byte-identical ``.coal``; the
 ``auto`` run at B=1 takes the same native host EM in both.  The f32 run
 is the kernel's torch twin against the reference's XLA f32 EM, held to
 the tiers of tests/test_em_f32.py:34-35.
+
+Every test here that runs mode mut waits for colate_tpu's native library
+first (:func:`load_native`): pytest workers that start together race to
+build it, and a worker that loses sees no library for good.
 """
 
 import filecmp
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -28,8 +33,45 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def load_native(timeout: float = 900.0, quiet: float = 3.0):
+    """colate_tpu's native library, loaded in this process.
+
+    colate_tpu/native builds ``libcolate_io.so`` in place at the first
+    ``load()`` of any process, so pytest workers that start together race:
+    one may load a file another is still writing, and ``load()`` then
+    returns None for the rest of that process (``_tried`` is latched).
+    While the file is being written this waits until nobody has written
+    it for ``quiet`` seconds; then it clears the latch and loads again.
+    It raises at once when the file is absent (the build failed) or when
+    a load of a finished file fails."""
+    from colate_tpu import native
+
+    so = os.environ.get("COLATE_NATIVE_SO", native._SO)
+    deadline = time.monotonic() + timeout
+    finished = False  # a load was retried on a file nobody was writing
+    while (lib := native.load()) is None:
+        failed = RuntimeError(f"native library failed to build or load: {so}")
+        if not os.path.exists(so):
+            raise failed
+        if time.time() - os.path.getmtime(so) > quiet:
+            if finished:
+                raise failed
+            finished = True
+        while time.time() - os.path.getmtime(so) <= quiet:
+            if time.monotonic() >= deadline:
+                raise failed
+            time.sleep(0.5)
+        native._lib, native._tried = None, False
+    return lib
+
+
 @pytest.fixture(scope="module")
-def fix(tmp_path_factory):
+def native_lib():
+    return load_native()
+
+
+@pytest.fixture(scope="module")
+def fix(tmp_path_factory, native_lib):
     from helpers.synth import make_fixture
 
     return make_fixture(str(tmp_path_factory.mktemp("torchmut")), n_per_chrom=3000, seed=5)
@@ -79,16 +121,68 @@ def test_float32_within_tiers(fix, tmp_path, capsys):
     np.testing.assert_array_equal(a == 0.0, b == 0.0)
 
 
+def test_recovers_from_a_latched_native_load(fix, tmp_path, capsys, monkeypatch):
+    """A worker whose first load() lost the build race (library file
+    present, ``_lib`` None, ``_tried`` True) runs mode mut once
+    :func:`load_native` has reloaded the library."""
+    from colate_tpu import native
+
+    assert os.path.exists(os.environ.get("COLATE_NATIVE_SO", native._SO))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    assert native.load() is None
+    assert load_native() is not None
+    ref, ours, err = _both(fix, tmp_path, capsys)
+    assert "provider=native " in err
+    assert filecmp.cmp(ref, ours, shallow=False)
+
+
+@pytest.mark.parametrize("state", ["absent", "broken"])
+def test_load_native_raises_at_once_without_a_library(tmp_path, monkeypatch, state):
+    """No wait when the library is absent or a finished file does not load."""
+    from colate_tpu import native
+
+    so = tmp_path / "libcolate_io.so"
+    if state == "broken":
+        so.write_bytes(b"not a shared library")
+        os.utime(so, (time.time() - 60, time.time() - 60))
+    monkeypatch.setenv("COLATE_NATIVE_SO", str(so))
+    monkeypatch.delenv("COLATE_NATIVE_REQUIRED", raising=False)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="native library failed to build or load") as exc:
+        load_native()
+    assert str(so) in str(exc.value)
+    assert time.monotonic() - t0 < 5
+
+
+def test_suffstats_names_a_missing_native_library(fix, monkeypatch):
+    from colate_tpu import native
+    from colate_tpu_torch.models.mut_em import suffstats
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    cfg = cli.mut_config(cli.build_parser().parse_args(_argv(fix, os.devnull)))
+    with pytest.raises(RuntimeError, match="native library failed to build or load") as exc:
+        suffstats(cfg, 3, device="cpu")
+    assert os.environ.get("COLATE_NATIVE_SO", native._SO) in str(exc.value)
+
+
 def test_port_never_loads_jax(fix, tmp_path):
-    """Importing the port and running mode mut in a fresh interpreter
-    leaves jax out of sys.modules."""
+    """Importing the port and running mode mut in a fresh interpreter, with
+    the EM's and the binning's plain torch versions, leaves jax out of
+    sys.modules."""
     out = str(tmp_path / "nojax")
     code = (
         "import sys\n"
         "import colate_tpu_torch, colate_tpu_torch.cli as c\n"
         "import colate_tpu_torch.ops.em, colate_tpu_torch.ops.em_kernel\n"
+        "import colate_tpu_torch.ops.bin_kernel, colate_tpu_torch.pipeline.binning\n"
         "import colate_tpu_torch.models.mut_em\n"
         f"rc = c.main({_argv(fix, out, '--torch_device', 'cpu', '--em_dtype', 'float32')!r})\n"
+        "assert rc == 0, rc\n"
+        f"rc = c.main({_argv(fix, out + '_dev', '--torch_device', 'cpu', '--binning', 'device')!r})\n"
         "assert rc == 0, rc\n"
         "print('JAX_LOADED' if 'jax' in sys.modules else 'JAX_ABSENT')\n"
     )
@@ -99,6 +193,8 @@ def test_port_never_loads_jax(fix, tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "JAX_ABSENT"
     assert os.path.exists(out + ".coal")
+    assert "binning=torch-twin:float32(cpu)" in r.stderr
+    assert os.path.exists(out + "_dev.coal")
 
 
 def test_no_jax_import_in_port_sources():
@@ -125,9 +221,7 @@ def test_cuda_without_a_card_raises(fix, tmp_path, monkeypatch):
     ("--devices", "2"),
     ("--checkpoint",),
     ("--coordinator", "localhost:1234", "--num_processes", "2", "--process_id", "0"),
-    ("--binning", "sharded"),
-    ("--binning", "device"),
-], ids=["devices", "checkpoint", "multiprocess", "binning-sharded", "binning-device"])
+], ids=["devices", "checkpoint", "multiprocess"])
 def test_unported_flags_exit_nonzero(fix, tmp_path, capsys, extra):
     out = str(tmp_path / "x")
     assert cli.main(_argv(fix, out, "--torch_device", "cpu", *extra)) != 0
