@@ -16,11 +16,13 @@ source, started together) and:
      chunked route (a launch and a host check per 8 iterations), beside
      the bound;
 7.   holds the binning kernel against its plain torch version and the host
-     float64 binning on the card, and checks that a stream split at a
-     block boundary bins bitwise identically;
+     float64 binning on the card, and checks that two launches on one
+     input, and a stream split at a block boundary, bin bitwise
+     identically;
 8.   bins 22.2M sites in 125 blocks (the whole-genome site count, with
-     bench.py's generator) and times the kernel, its plain version, the
-     port's binning end to end and the host binning;
+     bench.py's generator) and times the host preparation of the site
+     stream, its copy, the kernel, its plain version, the port's binning
+     end to end and the host binning;
 9.   drives mode ``mut --binning device`` (and once ``sharded``) through
      the CLI on the north-star fixture at 1024 replicates.
 
@@ -77,8 +79,18 @@ EM_OPS_N_AT = 13        # notshared, e = k
 EM_OPS_N_ABOVE = 18     # notshared, e > k: exp(-(H_e - H_t)) and its mass, the rest
 EM_OPS_LOGL = (3, 4)    # per bin and K-iteration chunk: the shared, notshared logl term
 EM_OPS_EPOCH = 11       # per replicate and epoch: its tables and its M-step
-# the binning's per site and bin
-BIN_FLOPS = 10
+# float32 operations of the binning, counted the same way from the function
+# as csrc/bin_hist.cu computes it, over the bins whose terms a site needs
+# (bin_ranges).  A regular site, per bin: the overlap's subtraction and its
+# add into the normaliser s, then the overlap again, the division by s and
+# two FMAs into the shared and notshared histograms:
+BIN_OPS_REG = 8
+# an emp site, per bin: the CDF at the bin's upper edge (a subtraction and a
+# division), ch - cl and an FMA; per site: the width, the CDF at the first
+# edge, the two one-hot adds; in the last bin, 1 - ch and its add
+BIN_OPS_EMP = 5
+BIN_OPS_EMP_SITE = 5
+BIN_OPS_EMP_LAST = 2
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -110,6 +122,62 @@ def em_bound(k, E: int, sc, nc, iters) -> tuple[float, str]:
     counts read and the rates and run state read and written once."""
     B = len(iters)
     return bound_ms(em_ops(k, E, sc, nc, iters), B * (2 * 185 + 2 * E) * 4 + B * 16)
+
+
+def bin_ranges(sites, age: float):
+    """Per site, the emp flag and the first and last bin whose term the
+    dense formula makes non-zero, found as csrc/bin_hist.cu finds them:
+    float32 comparisons against the float32 edges, an empty range as
+    last < first.  A regular site's range is exactly the bins whose
+    overlap with [max(age_begin, age), age_end] is positive; an emp
+    site's runs from the bin below the first edge above max(age,
+    age_begin) to the bin below the first edge above age where the CDF
+    reaches 1 (through the last bin when it never does)."""
+    import numpy as np
+
+    from colate_tpu_torch.config import NUM_AGE_BINS, age_bin_edges
+
+    e = age_bin_edges().astype(np.float32)
+    age32 = np.float32(age)
+    ab = np.asarray(sites.age_begin, np.float32)
+    ae = np.asarray(sites.age_end, np.float32)
+    emp = np.asarray(sites.age_begin, np.float64) <= age
+    top = NUM_AGE_BINS - 1
+    lo = np.maximum(np.searchsorted(e, np.maximum(ab, age32), "right") - 1, 0)
+    hi = np.minimum(np.searchsorted(e, ae, "left") - 1, top)
+    hi = np.where(ae > np.maximum(ab, age32), hi, lo - 1)
+    i = np.flatnonzero(emp)
+    if i.size:
+        a, w = ab[i], np.maximum(ae[i] - ab[i], np.float32(1e-30))
+        e_inf = np.append(e, np.float32(np.inf))
+
+        def done(j):  # the kernel's test: CDF 1 from edge j on
+            x = e_inf[np.minimum(j, e.size)]
+            return (j >= 0) & (x > age32) & (x - a >= w)
+
+        c = np.searchsorted(e, ae[i], "left")  # a guess, moved to the first j done
+        while (m := (c > 0) & done(c - 1)).any():
+            c = c - m
+        while (m := ~done(c)).any():
+            c = c + m
+        lo[i] = np.minimum(lo[i], top)
+        hi[i] = np.minimum(c, NUM_AGE_BINS) - 1
+    return emp, lo, hi
+
+
+def bin_ops(sites, age: float) -> float:
+    """Float32 operations of the binning of ``sites`` at ``age``, over the
+    bins each site's terms need (bin_ranges), branch by branch.  The
+    float64 sums of the chunk partials (740 a chunk) are left out."""
+    import numpy as np
+
+    from colate_tpu_torch.config import NUM_AGE_BINS
+
+    emp, lo, hi = bin_ranges(sites, age)
+    n = np.maximum(hi - lo + 1, 0).astype(np.float64)
+    last = (hi == NUM_AGE_BINS - 1) & (n > 0)
+    return float(BIN_OPS_REG * n[~emp].sum() + BIN_OPS_EMP * n[emp].sum()
+                 + BIN_OPS_EMP_SITE * emp.sum() + BIN_OPS_EMP_LAST * (last & emp).sum())
 
 
 def check(ok: bool, what: str) -> None:
@@ -560,10 +628,10 @@ def main(argv: list[str] | None = None) -> int:
             "north-star fixture (the main path's sites)": (join_tmp_inputs(cfg), 0.0),
         }
         for name, (sites, age) in cases.items():
-            packed = bin_kernel.pack_sites(sites, age).to(dev)
-            hk = bin_kernel.bin_chunks(packed)
+            stream = bin_kernel.site_stream(sites, age).to(dev)
+            hk = bin_kernel.bin_chunks(stream)
             torch.cuda.synchronize()
-            hp = bin_kernel.bin_chunks_reference(packed)
+            hp = bin_kernel.bin_chunks_reference(stream)
             hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
             nb = sites.num_blocks
             check(hk.shape == (nb, 4, 185), f"{name}: kernel histograms {hk.shape}")
@@ -575,13 +643,17 @@ def main(argv: list[str] | None = None) -> int:
                 bin_abs = max(bin_abs, float(np.abs(hk - hp).max()))
             e2e = bin_sites_analytic(sites, age, dev)
             same = all(np.array_equal(a, b) for a, b in zip(e2e, ours))
-            print(f"bin kernel, {name} ({len(sites)} sites, {nb} blocks, {packed.n_chunks} "
-                  f"chunks): vs plain {rel_plain:.3e} (<= 2e-5), vs native f64 "
+            print(f"bin kernel, {name} ({len(sites)} sites, {nb} blocks, {stream.n_chunks} "
+                  f"chunks, {stream.n_segs} segments): vs plain {rel_plain:.3e} (<= 2e-5), vs native f64 "
                   f"{rel_native:.3e} (<= 5e-5)", flush=True)
             check(rel_plain <= 2e-5, f"{name}: bin kernel within 2e-5 of its plain version")
             check(rel_native <= 5e-5, f"{name}: bin kernel within 5e-5 of native f64")
             check(same, f"{name}: bin_sites_analytic on the card gives the kernel's sums")
         sites = cases["bench generator 1M sites, 125 blocks"][0]
+        stream = bin_kernel.site_stream(sites).to(dev)
+        again = [bin_kernel.bin_chunks(stream) for _ in range(2)]
+        check(torch.equal(*again), "two launches on one input bin bitwise identically")
+        print("bin kernel: two launches on the 1M sites bitwise equal", flush=True)
         whole = bin_sites_analytic(sites, 0.0, dev)
         cut = int(np.searchsorted(sites.block_id, 60))
         halves = [bin_sites_analytic(type(sites)(
@@ -592,24 +664,27 @@ def main(argv: list[str] | None = None) -> int:
         check(all(np.array_equal(w, a + b) for w, a, b in zip(whole, *halves)),
               "a split at a block boundary bins bitwise identically")
         print(f"bin kernel: 1M sites split at site {cut} (block 60) bitwise equal", flush=True)
-        del cases, sites, whole, halves
+        del cases, sites, stream, again, whole, halves
 
         # ---- 8. the whole-genome site count: 22.2M sites in 125 blocks ----
         t0 = time.perf_counter()
         sites = bench_sites(N_WHOLE_GENOME)
         t_gen = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        packed_host = bin_kernel.pack_sites(sites)
-        t_pack = time.perf_counter() - t0
+        t_prep, stream_host = [], None
+        for _ in range(3):  # the first page-locks its buffers, the others reuse them
+            stream_host = None
+            t0 = time.perf_counter()
+            stream_host = bin_kernel.site_stream(sites, pin=True)
+            t_prep.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        packed = packed_host.to(dev)
+        stream = stream_host.to(dev)
         torch.cuda.synchronize()
         t_h2d = time.perf_counter() - t0
-        bin_ms = cuda_ms(lambda: bin_kernel.bin_chunks(packed), 5)
-        bin_plain_ms = cuda_ms(lambda: bin_kernel.bin_chunks_reference(packed), 1)
-        hk = bin_kernel.bin_chunks(packed).cpu().numpy()
-        hp = bin_kernel.bin_chunks_reference(packed).cpu().numpy()
+        bin_ms = cuda_ms(lambda: bin_kernel.bin_chunks(stream), 20)
+        bin_plain_ms = cuda_ms(lambda: bin_kernel.bin_chunks_reference(stream), 1)
+        hk = bin_kernel.bin_chunks(stream).cpu().numpy()
+        hp = bin_kernel.bin_chunks_reference(stream).cpu().numpy()
         bin_abs = max(bin_abs, float(np.abs(hk - hp).max()))
         ours = [hk[:, j] for j in range(4)]
         rel_plain = hist_rel(ours, [hp[:, j] for j in range(4)])
@@ -627,21 +702,30 @@ def main(argv: list[str] | None = None) -> int:
         same = all(np.array_equal(a, b) for a, b in zip(e2e, ours))
         n_wg = len(sites)
         rate = lambda sec: n_wg / sec / 1e6
-        # each site read once (four f32 columns and its meta), each chunk's
-        # count and block, each block's four f64 histograms written once
-        bin_bytes = (packed.fv.nbytes + packed.meta.nbytes + 2 * packed.n_chunks * 4
-                     + sites.num_blocks * 4 * 185 * 8)
-        bin_bound_ms, bin_bound_by = bound_ms(n_wg * 185 * BIN_FLOPS, bin_bytes)
-        print(f"whole genome: {n_wg} sites, {sites.num_blocks} blocks, {packed.n_chunks} chunks "
-              f"(generated in {t_gen:.3f} s) [{smi}]", flush=True)
+        # each site read once (four f32 columns and its meta), the chunk
+        # table and the edges read once, each block's four f64 histograms
+        # written once
+        in_bytes = sum(getattr(stream, name).nbytes for name in (
+            "fv", "meta", "chunk_start", "chunk_n", "block_chunks", "seg_first", "block_seg"))
+        bin_bytes = in_bytes + 186 * 4 + sites.num_blocks * 4 * 185 * 8
+        ops = bin_ops(sites, 0.0)
+        bin_bound_ms, bin_bound_by = bound_ms(ops, bin_bytes)
+        emp, lo, hi = bin_ranges(sites, 0.0)
+        nbins = np.maximum(hi - lo + 1, 0)
+        print(f"whole genome: {n_wg} sites, {sites.num_blocks} blocks, {stream.n_chunks} chunks, "
+              f"{stream.n_segs} segments (generated in {t_gen:.3f} s); bins a site needs: "
+              f"{nbins.mean():.3f} ({nbins[~emp].mean():.3f} regular, {nbins[emp].mean():.3f} emp); "
+              f"{ops / 1e9:.4f} GFLOP, {bin_bytes} bytes [{smi}]", flush=True)
+        del emp, lo, hi, nbins
         print(f"  kernel, stream resident on the card: {bin_ms:.4f} ms ({rate(bin_ms / 1e3):.1f}M "
               f"sites/s); bound {bin_bound_ms:.4f} ms ({bin_bound_by}), {bin_bound_ms / bin_ms:.4f} "
               f"of it")
         print(f"  plain torch version on the card:     {bin_plain_ms:.4f} ms "
               f"({rate(bin_plain_ms / 1e3):.1f}M sites/s)")
-        print(f"  host packing {t_pack:.4f} s ({rate(t_pack):.1f}M sites/s), host-to-device copy "
-              f"{t_h2d:.4f} s of {packed.fv.nbytes + packed.meta.nbytes} bytes")
-        print(f"  bin_sites_analytic end to end (pack + copy + kernel + copy back): "
+        print(f"  host preparation of the site stream {', '.join(f'{t:.4f}' for t in t_prep)} s "
+              f"(the first page-locks its buffers; {rate(min(t_prep)):.1f}M sites/s), host-to-device copy from page-locked memory "
+              f"{t_h2d:.4f} s of {in_bytes} bytes")
+        print(f"  bin_sites_analytic end to end (preparation + copy + kernel + copy back): "
               f"{', '.join(f'{t:.4f}' for t in t_e2e)} s ({rate(min(t_e2e)):.1f}M sites/s)")
         print(f"  native cn_bin_analytic on the host: {', '.join(f'{t:.4f}' for t in t_native)} s "
               f"({rate(min(t_native)):.1f}M sites/s)")
@@ -650,7 +734,7 @@ def main(argv: list[str] | None = None) -> int:
         check(rel_plain <= 2e-5, "whole genome: bin kernel within 2e-5 of its plain version")
         check(rel_native <= 5e-5, "whole genome: bin kernel within 5e-5 of native f64")
         check(same, "whole genome: bin_sites_analytic gives the kernel's sums")
-        del sites, packed_host, packed, native, e2e, hk, hp, ours
+        del sites, stream_host, stream, native, e2e, hk, hp, ours
 
         # ---- 9. the main path of this slice: mode mut --binning device ----
         native_coal = read_coal_rates(os.path.join(tmp, "out_warm.coal"))

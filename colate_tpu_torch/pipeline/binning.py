@@ -3,12 +3,13 @@
 Three binnings of the sites of mode ``mut``, copied from or standing for
 colate_tpu/pipeline/binning.py:
 
-- :func:`bin_sites_analytic` bins on a torch device: the host packs the
-  site stream (ops/bin_kernel.py:pack_sites), copies it to ``device``
-  once, and the device bins it, with the CUDA kernel on a card and its
-  plain torch version on the CPU.  The reference's slab streaming and
-  pooled, pre-faulted pack buffers worked around a ~30 ms cost per
-  host-to-device transfer of the TPU host and are not carried over.
+- :func:`bin_sites_analytic` bins on a torch device: the host lays the
+  site stream out (ops/bin_kernel.py:site_stream, in page-locked memory
+  for a card), copies it to ``device`` once, and the device bins it, with
+  the CUDA kernel on a card and its plain torch version on the CPU.  The
+  reference's slab streaming and pooled, pre-faulted pack buffers worked
+  around a ~30 ms cost per host-to-device transfer of the TPU host and
+  are not carried over.
 - :func:`bin_sites_analytic_native`: the host C++ binning in float64.
 - :func:`bin_sites_mc_parity`: the bit-exact replay of the reference's
   100-draw Monte Carlo binning (libstdc++ mt19937, see hostrng.py).
@@ -48,10 +49,11 @@ MAX_BLOCKS = 65536
 def bin_sites_analytic(sites: JoinedSites, age: float = 0.0, device: str | torch.device = "cpu"):
     """The four histograms of ``sites``, binned on ``device``.  Raises past
     MAX_BLOCKS blocks, as the reference does."""
-    from colate_tpu_torch.ops.bin_kernel import bin_chunks, pack_sites
+    from colate_tpu_torch.ops.bin_kernel import bin_chunks, site_stream
 
-    packed = pack_sites(sites, age).to(torch.device(device))
-    hists = bin_chunks(packed).cpu().numpy()
+    device = torch.device(device)
+    stream = site_stream(sites, age, pin=device.type == "cuda").to(device)
+    hists = bin_chunks(stream).cpu().numpy()
     return tuple(np.ascontiguousarray(hists[:, j]) for j in range(4))
 
 
@@ -80,34 +82,6 @@ def bin_sites_analytic_native(sites: JoinedSites, age: float = 0.0):
         float(age), AGE_BIN_C, *[p(o) for o in outs]
     )
     return tuple(o[:nb] for o in outs)
-
-
-class GrowableBlockHists:
-    """Four [blocks, nbins] block-histogram accumulators that grow on
-    demand — no fixed block cap (a 30 Mb-block genome of any size fits).
-
-    Iterating yields the four current arrays (shared, notshared,
-    shared_emp, notshared_emp), so callers that unpack a 4-tuple work
-    unchanged; callers that know the upcoming block range call
-    :meth:`ensure` first."""
-
-    def __init__(self, nbins: int = NUM_AGE_BINS, initial_blocks: int = 512):
-        self.arrays = [
-            np.zeros((initial_blocks, nbins), np.float64) for _ in range(4)
-        ]
-
-    def ensure(self, blocks: int) -> None:
-        cur = self.arrays[0].shape[0]
-        if blocks <= cur:
-            return
-        grow = max(blocks, 2 * cur)
-        self.arrays = [
-            np.concatenate([a, np.zeros((grow - cur, a.shape[1]))])
-            for a in self.arrays
-        ]
-
-    def __iter__(self):
-        return iter(self.arrays)
 
 
 def mc_bin_site(

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from colate_tpu import cli as jax_cli
+from colate_tpu.config import bin_of_age
 from colate_tpu.formats.coal import CoalFile
 from colate_tpu.ops.bin_pallas import bin_sites_pallas
 from colate_tpu.pipeline import binning as jax_binning
@@ -111,30 +112,99 @@ def test_past_max_blocks_raises_like_the_reference():
     assert str(ours.value) == str(ref.value)
 
 
+def _check_chunk_table(blk, nb):
+    """The chunk table covers every site once, in stream order; each chunk
+    holds up to CHUNK sites of one run of one block, and the chunks
+    restart at every run; each block's chunks are listed in stream order
+    and cut into segments of SEG chunks (the last one shorter)."""
+    C, S = bin_kernel.CHUNK, bin_kernel.SEG
+    blk = np.asarray(blk)
+    t = bin_kernel.chunk_table(blk, nb)
+    start, cnt, cblk = t["chunk_start"], t["chunk_n"], t["chunk_blk"]
+    assert start.dtype == np.int64 and cnt.dtype == cblk.dtype == np.int32
+    assert cnt.sum() == blk.size and (cnt >= 1).all() and (cnt <= C).all()
+    np.testing.assert_array_equal(start, np.cumsum(cnt) - cnt)
+    np.testing.assert_array_equal(blk, np.repeat(cblk, cnt))
+    runs = np.diff(np.flatnonzero(np.diff(blk, prepend=-1, append=-1)))
+    assert cnt.size == (-(-runs // C)).sum()
+    # a chunk is short only at the end of its run
+    ends = start + cnt
+    short = cnt < C
+    assert (blk[ends[short & (ends < blk.size)]] != blk[ends[short & (ends < blk.size)] - 1]).all()
+
+    bc, sf, bs = t["block_chunks"], t["seg_first"], t["block_seg"]
+    assert bc.dtype == sf.dtype == bs.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(bc), np.arange(cnt.size))
+    assert bs.shape == (nb + 1,) and bs[0] == 0 and sf[0] == 0 and sf[-1] == cnt.size
+    assert bs[-1] == sf.size - 1
+    off = np.concatenate([[0], np.cumsum(np.bincount(cblk, minlength=nb))])
+    for b in range(nb):
+        mine = bc[off[b] : off[b + 1]]
+        assert (cblk[mine] == b).all() and (np.diff(mine) > 0).all()
+        np.testing.assert_array_equal(sf[bs[b] : bs[b + 1] + 1],
+                                      np.append(np.arange(off[b], off[b + 1], S), off[b + 1])
+                                      if off[b + 1] > off[b] else [off[b]])
+    return t
+
+
 def test_packing_is_block_aligned():
-    """Unsorted ids restart a chunk at every id change: every chunk holds
-    one block's sites, padded with zero-weight regular lanes."""
+    """The unpadded stream: the columns as float32 in stream order, the emp
+    flag and bin in ``meta``, and a chunk table in which every chunk lies
+    in one run of one block (unsorted ids restart a chunk at every id
+    change)."""
     sites = synthetic_sites(n=4000, sorted_blocks=False)
-    p = bin_kernel.pack_sites(sites)
-    C = bin_kernel.CHUNK
-    blk = np.asarray(sites.block_id)
-    runs = np.flatnonzero(np.diff(blk)) + 1
-    assert p.n_chunks == runs.size + 1 and p.fv.shape == (4, p.n_chunks * C)
-    n = p.chunk_n.numpy()
-    assert n.sum() == len(sites) and (n >= 1).all() and (n <= C).all()
-    np.testing.assert_array_equal(p.chunk_blk.numpy(), blk[np.concatenate([[0], runs])])
-    lane = np.arange(C)[None, :]
-    pad = (lane >= n[:, None]).ravel()
-    fv = p.fv.numpy()
-    assert (fv[0, pad] == 1.0).all() and (fv[1, pad] == 2.0).all() and (fv[2:, pad] == 0).all()
-    assert (p.meta.numpy()[pad] == 0).all()
-    np.testing.assert_array_equal(fv[2, ~pad], sites.w_shared.astype(np.float32))
-    emp = (p.meta.numpy()[~pad] & bin_kernel.EMP) != 0
+    s = bin_kernel.site_stream(sites)
+    assert s.fv.shape == (4, len(sites)) and s.meta.shape == (len(sites),)
+    for row, col in enumerate((sites.age_begin, sites.age_end, sites.w_shared, sites.w_notshared)):
+        np.testing.assert_array_equal(s.fv[row].numpy(), col.astype(np.float32))
+    meta = s.meta.numpy()
+    emp = (meta & bin_kernel.EMP) != 0
     np.testing.assert_array_equal(emp, sites.age_begin <= 0.0)
-    off = p.block_off.numpy()
-    for b in range(sites.num_blocks):
-        chunks = p.block_chunks.numpy()[off[b] : off[b + 1]]
-        assert (np.diff(chunks) > 0).all() and (p.chunk_blk.numpy()[chunks] == b).all()
+    assert (meta[~emp] == 0).all()
+    ref = bin_of_age(sites.age_end[emp])
+    np.testing.assert_array_equal(meta[emp] & (bin_kernel.EMP - 1), ref)
+    t = _check_chunk_table(sites.block_id, sites.num_blocks)
+    for name in bin_kernel.SiteStream.TABLE:
+        np.testing.assert_array_equal(getattr(s, name).numpy(), t[name])
+    assert s.n_chunks == np.count_nonzero(np.diff(sites.block_id)) + 1
+
+
+CHUNK_TABLES = {  # name: (block ids, number of blocks)
+    "no sites": (np.zeros(0, np.int32), 3),
+    "one site": (np.array([2], np.int32), 4),
+    "a block of exactly 512 sites": (np.repeat(np.arange(3, dtype=np.int32), [5, 512, 7]), 3),
+    "a block of several segments": (np.repeat(np.arange(3, dtype=np.int32), [1, 512 * 16 * 3 + 5, 512 * 16]), 3),
+    "3000 blocks": (np.sort(np.random.default_rng(4).integers(0, 3000, 20000)).astype(np.int32), 3000),
+    "unsorted ids, blocks of several runs": (
+        np.repeat(np.array([1, 0, 1, 2, 0, 1], np.int32), [700, 3, 512 * 17, 1, 1025, 9]), 4),
+}
+
+
+@pytest.mark.parametrize("name", list(CHUNK_TABLES))
+def test_chunk_table_edge_cases(name):
+    blk, nb = CHUNK_TABLES[name]
+    t = _check_chunk_table(blk, nb)
+    S = bin_kernel.SEG
+    if name == "a block of several segments":  # 1, 49 and 16 chunks
+        assert list(np.diff(t["block_seg"])) == [1, -(-49 // S), -(-16 // S)]
+    if name == "unsorted ids, blocks of several runs":
+        # block 0: 1 + 3 chunks; block 1: runs of 700, 512 * 17 and 9 sites, 2 + 17 + 1 chunks
+        assert list(np.diff(t["block_seg"])) == [1, -(-20 // S), 1, 0]
+
+
+def test_plain_version_reads_the_chunk_table():
+    """The plain version bins what a chunk table hands it: a stream whose
+    chunks are listed out of stream order bins as the ordered one."""
+    sites = synthetic_sites(n=3000, nb=3, seed=2)
+    s = bin_kernel.site_stream(sites)
+    ref = bin_kernel.bin_chunks_reference(s)
+    perm = torch.randperm(s.n_chunks, generator=torch.Generator().manual_seed(0))
+    shuffled = bin_kernel.SiteStream(
+        fv=s.fv, meta=s.meta, chunk_start=s.chunk_start[perm], chunk_n=s.chunk_n[perm],
+        chunk_blk=s.chunk_blk[perm], block_chunks=s.block_chunks, seg_first=s.seg_first,
+        block_seg=s.block_seg, num_blocks=s.num_blocks, age=s.age,
+    )
+    torch.testing.assert_close(bin_kernel.bin_chunks_reference(shuffled), ref, rtol=1e-12, atol=0)
 
 
 def test_hist_rel():
@@ -150,9 +220,9 @@ def test_hist_rel():
 
 
 def test_no_kernel_for_another_device():
-    packed = bin_kernel.pack_sites(synthetic_sites(n=100, nb=2)).to("meta")
+    stream = bin_kernel.site_stream(synthetic_sites(n=100, nb=2)).to("meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        bin_kernel.bin_chunks(packed)
+        bin_kernel.bin_chunks(stream)
 
 
 # ---- mode mut --binning device|sharded through the CLIs ----

@@ -326,17 +326,38 @@ BIN_CASES = {  # name: (sites, age)
 @pytest.mark.parametrize("name", list(BIN_CASES))
 def test_bin_kernel_matches_plain_and_native(card, name):
     sites, age = BIN_CASES[name]()
-    packed = bin_kernel.pack_sites(sites, age).to(card)
+    stream = bin_kernel.site_stream(sites, age, pin=True).to(card)
     before = bin_kernel.launches
-    hk = bin_kernel.bin_chunks(packed)
+    hk = bin_kernel.bin_chunks(stream)
     torch.cuda.synchronize()
-    assert bin_kernel.launches == before + (packed.n_chunks > 0)
-    hp = bin_kernel.bin_chunks_reference(packed)
+    assert bin_kernel.launches == before + (stream.n_chunks > 0)
+    hp = bin_kernel.bin_chunks_reference(stream)
     hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
     assert hk.shape == (sites.num_blocks, 4, 185) and np.isfinite(hk).all()
     ours = [hk[:, j] for j in range(4)]
     assert hist_rel(ours, [hp[:, j] for j in range(4)]) <= 2e-5
     assert hist_rel(ours, bin_sites_analytic_native(sites, age)) <= 5e-5
+
+
+def test_bin_kernel_is_bitwise_from_run_to_run(card):
+    """No atomics: two launches on one input give bitwise equal sums, also
+    with unsorted ids (blocks of several runs) and blocks of many
+    segments."""
+    for sites in (bench_sites(300_000, nb=7), synthetic_sites(n=40_000, sorted_blocks=False)):
+        stream = bin_kernel.site_stream(sites).to(card)
+        assert stream.n_segs > sites.num_blocks or stream.n_chunks > 2 * sites.num_blocks
+        first = bin_kernel.bin_chunks(stream)
+        assert torch.equal(first, bin_kernel.bin_chunks(stream))
+
+
+def test_bin_kernel_refuses_a_malformed_stream(card):
+    stream = bin_kernel.site_stream(synthetic_sites(n=1000, nb=2)).to(card)
+    bad = bin_kernel.SiteStream(**{**stream.__dict__, "chunk_start": stream.chunk_start.int()})
+    with pytest.raises(ValueError, match="chunk_start must be contiguous torch.int64"):
+        bin_kernel.bin_chunks(bad)
+    bad = bin_kernel.SiteStream(**{**stream.__dict__, "fv": stream.fv[:, :-1]})
+    with pytest.raises(ValueError, match="fv must be contiguous|inconsistent shapes"):
+        bin_kernel.bin_chunks(bad)
 
 
 def test_bin_kernel_split_at_a_block_boundary_is_bitwise(card):

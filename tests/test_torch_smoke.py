@@ -92,3 +92,54 @@ def test_smoke_reads_the_coal(smoke, tmp_path, ancient):
     path = str(tmp_path / "x.coal")
     write_mut_coal(path, epochs, rates, is_ancient=ancient, ep_null=2 if ancient else 0)
     np.testing.assert_array_equal(smoke.read_coal_rates(path), CoalFile.read(path).rates)
+
+
+def _edge_sites(age):
+    """Sites whose ages sit on bin edges, beyond the table, or end before
+    they begin."""
+    from colate_tpu_torch.config import age_bin_edges
+    from colate_tpu_torch.pipeline.join import JoinedSites
+
+    e = age_bin_edges().astype(np.float32).astype(np.float64)
+    ab = np.array([e[40], e[40], 0.0, age, age, e[3], 1e8, 0.0, e[184], age / 2, 5.0])
+    ae = np.array([e[50], e[41], e[185], e[60], age / 2 + 1e-3, e[3], 2e8, 2e8, e[185], e[1], 5.0])
+    n = ab.size
+    return JoinedSites(age_begin=ab, age_end=ae, w_shared=np.ones(n), w_notshared=np.ones(n),
+                       block_id=np.zeros(n, np.int32), num_blocks=1)
+
+
+@pytest.mark.parametrize("case", ["age0", "age30", "beyond", "edges0", "edges30"])
+def test_smoke_bin_ops_counts_the_non_zero_terms(smoke, case):
+    """bin_ops (vectorised, over bin_ranges) against a walk over every site
+    and bin of the dense formula in float32 that counts its non-zero terms,
+    branch by branch."""
+    from colate_tpu_torch.config import age_bin_edges
+    from colate_tpu_torch.fixtures import beyond_table_sites, synthetic_sites
+
+    age = 30.0 if case.endswith("30") else 0.0
+    sites = {"age0": lambda: synthetic_sites(n=300, seed=3),
+             "age30": lambda: synthetic_sites(n=300, seed=1, age=30.0),
+             "beyond": lambda: beyond_table_sites(n=200),
+             }.get(case, lambda: _edge_sites(age))()
+    f = np.float32
+    e = age_bin_edges().astype(f)
+    a32 = f(age)
+    want = 0.0
+    for ab64, ae64 in zip(sites.age_begin, sites.age_end):
+        ab, ae = f(ab64), f(ae64)
+        if ab64 <= age:
+            width = max(f(ae - ab), f(1e-30))
+            cdf = [f(min(max(f((x - ab) / width), f(0)), f(1))) if x > a32 else f(0) for x in e]
+            want += smoke.BIN_OPS_EMP_SITE
+            for k in range(185):
+                pe = f(cdf[k + 1] - cdf[k])
+                if k == 184:
+                    pe = f(pe + f(f(1) - cdf[185]))
+                    want += smoke.BIN_OPS_EMP_LAST * (pe != 0)
+                want += smoke.BIN_OPS_EMP * (pe != 0)
+        else:
+            a = max(ab, a32)
+            ov = [max(f(min(ae, e[k + 1]) - max(a, e[k])), f(0)) for k in range(185)]
+            if sum(ov) > 0:
+                want += smoke.BIN_OPS_REG * sum(x > 0 for x in ov)
+    assert smoke.bin_ops(sites, age) == want
