@@ -41,7 +41,22 @@ source, started together) and:
      ``.anc``/``.mut`` fixture of two such chromosomes, against a
      ``--torch_device cpu`` run of the same input (rates within 1e-5, the
      same NaN pattern), and checks the device route in the log;
-13.  the same for mode ``local_ancestry`` with segment poplabels.
+13.  the same for mode ``local_ancestry`` with segment poplabels;
+14.  (run after 9, as are 15-17) ``--checkpoint`` at 1024 replicates: an
+     uninterrupted run, a process killed after its first 128-iteration
+     EM chunk (exit 17), the run resumed from its state (an EM launch a
+     chunk), a rerun from the cached histograms; all byte-identical to
+     phase 5's run;
+15.  shards on the one card: ``parallel/mesh.py:dryrun_multichip`` over 4
+     shards of cuda:0, the binning at 22.2M sites (phase 8's) and the EM
+     at 1024 replicates bitwise equal to one shard, and its mode mut
+     ``.coal``; the CLI with ``--devices 1 --binning sharded`` (and 2
+     where the machine has two cards) against phase 9's ``sharded`` run;
+16.  two ranks of the CLI on the card (``--coordinator``, gloo merge)
+     under ``--binning auto`` and ``device``, rank 0's ``.coal`` against
+     phases 5 and 9;
+17.  ``--sampling mc_parity`` and ``--em_dtype float64`` at 8 replicates:
+     the ``.coal`` on the card byte-identical to ``--torch_device cpu``.
 
 Prints the measured times, one JSON line about the tree estimators'
 device programs (plain torch, not kernels), one JSON line about the
@@ -659,6 +674,230 @@ def tree_cli_phases(tmp: str, anc, mut, coords, smi: str) -> dict:
     return out
 
 
+def cli_run(argv: list[str], out_prefix: str) -> dict:
+    """One in-process CLI run with JSON logs: its wall, its events by name
+    and the launches of each kernel in it (counts set to 0 just before)."""
+    import torch
+
+    from colate_tpu_torch import cli
+    from colate_tpu_torch.ops import bin_kernel, em_kernel
+
+    os.environ["COLATE_TPU_LOG"] = "json"
+    log = io.StringIO()
+    em_kernel.launches = bin_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(log):
+            rc = cli.main(argv + ["-o", out_prefix])
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["COLATE_TPU_LOG"]
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"CLI run {os.path.basename(out_prefix)} exits 0 (got {rc}): {log.getvalue()[-2000:]}")
+    events = {}
+    for line in log.getvalue().splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            events[rec["event"]] = rec
+    return dict(wall=wall, events=events, em=em_kernel.launches, bin=bin_kernel.launches,
+                timings=events["mut_done"]["timings"], provider=events["mut_em"]["provider"])
+
+
+def same_bytes(a: str, b: str) -> bool:
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def checkpoint_phase(argv: list[str], tmp: str, smi: str) -> dict:
+    """Phase 14: --checkpoint at B=1024 on the north-star fixture.  An
+    uninterrupted run (the EM kernel, one launch at the default chunk of
+    4,096 iterations); a process killed after its first 128-iteration
+    chunk, which must exit 17 and leave the EM state; the run resumed
+    from it (a launch per chunk); a rerun that takes the cached
+    histograms.  The three .coal are byte-identical, and equal to phase
+    5's run without --checkpoint."""
+    from colate_tpu_torch.models import mut_em
+
+    plain = os.path.join(tmp, "out_warm.coal")
+    ck = argv + ["--checkpoint"]
+    parsed = []
+    real = mut_em.compute_suffstats
+
+    def counting(*a, **k):
+        parsed.append(1)
+        return real(*a, **k)
+
+    mut_em.compute_suffstats = counting
+    try:
+        whole = os.path.join(tmp, "ck_whole")
+        runs = {"uninterrupted": cli_run(ck, whole)}
+        check(same_bytes(whole + ".coal", plain), "the --checkpoint run writes the plain run's bytes")
+        check(runs["uninterrupted"]["provider"] == "cuda-kernel:float32(checkpointed)",
+              f"checkpointed EM on the card ({runs['uninterrupted']['provider']})")
+        check(runs["uninterrupted"]["em"] == 1, "one EM launch at the default chunk")
+
+        killed = os.path.join(tmp, "ck_killed")
+        env = dict(os.environ, COLATE_TPU_LOG="json", COLATE_EM_CKPT_CHUNK="128",
+                   COLATE_EM_DIE_AFTER_CHUNKS="1")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "colate_tpu_torch", *ck, "-o", killed], cwd=REPO,
+                           env=env, capture_output=True, text=True, timeout=300)
+        kill_wall = time.perf_counter() - t0
+        check(p.returncode == 17, f"the killed run exits 17 (got {p.returncode}): {p.stderr[-2000:]}")
+        check(os.path.exists(killed + ".emstate.npz") and not os.path.exists(killed + ".coal"),
+              "the killed run leaves its EM state and no .coal")
+        os.environ["COLATE_EM_CKPT_CHUNK"] = "128"
+        try:
+            runs["resumed"] = cli_run(ck, killed)
+        finally:
+            del os.environ["COLATE_EM_CKPT_CHUNK"]
+        check(not os.path.exists(killed + ".emstate.npz"), "the resumed run removes its EM state")
+        check(same_bytes(killed + ".coal", whole + ".coal"), "the resumed run writes the uninterrupted bytes")
+        it_max = max(runs["resumed"]["events"]["mut_done"]["iters"])
+        chunks = -(-it_max // 128)
+        check(runs["resumed"]["em"] == chunks - 1,
+              f"one EM launch a chunk: {chunks} chunks of 128 to {it_max} iterations, the first in "
+              f"the killed process, {runs['resumed']['em']} resumed")
+
+        n_parsed = len(parsed)
+        runs["cache hit"] = cli_run(ck, whole)
+        check(len(parsed) == n_parsed, "the rerun took the cached histograms (no parse, no binning)")
+        check(runs["cache hit"]["timings"]["binning"] == 0.0, "the rerun's binning stage is 0")
+        check(same_bytes(whole + ".coal", plain), "the rerun writes the same bytes")
+    finally:
+        mut_em.compute_suffstats = real
+    print(f"--checkpoint killed after its first chunk of 128: exit 17 after {kill_wall:.4f} s "
+          f"(one-shot process), .emstate.npz left [{smi}]", flush=True)
+    for name, r in runs.items():
+        st = r["timings"]
+        print(f"mode mut --checkpoint B={B_E2E} {name}: wall {r['wall']:.4f} s; parse {st['parse']:.4f} s, "
+              f"binning {st['binning']:.4f} s, bootstrap {st['bootstrap']:.4f} s, em {st['em']:.4f} s; "
+              f"{r['em']} EM kernel launches [{smi}]", flush=True)
+    print(f"--checkpoint: uninterrupted, killed and resumed, and cached runs byte-identical to the "
+          f"plain run; {chunks} EM launches at chunk 128 (1 killed + {runs['resumed']['em']} resumed), "
+          f"1 at the default chunk", flush=True)
+    return dict(runs, chunk128_launches=chunks)
+
+
+def shard_phase(sites, argv: list[str], tmp: str, dev, smi: str) -> dict:
+    """Phase 15: shards on one card.  dryrun_multichip over [cuda:0] * 4
+    with the binning at the whole-genome site count and the EM at B=1024,
+    both bitwise equal to one shard, and its mode mut .coal; the CLI with
+    --devices 1 --binning sharded against phase 9's --binning sharded; and
+    --devices 2 where the machine has two cards."""
+    import torch
+
+    from colate_tpu_torch.ops import bin_kernel, em_kernel
+    from colate_tpu_torch.parallel.mesh import dryrun_multichip
+
+    card = torch.device(dev.type, torch.cuda.current_device())
+    em_kernel.launches = bin_kernel.launches = 0
+    t0 = time.perf_counter()
+    info = dryrun_multichip(4, devices=[card] * 4, sites=sites, B=B_E2E)
+    wall = time.perf_counter() - t0
+    info.update(wall=wall, em_launches=em_kernel.launches, bin_launches=bin_kernel.launches)
+    print(f"dryrun_multichip(4) on 4 shards of {card} ({len(sites)} sites, {sites.num_blocks} blocks, "
+          f"B={B_E2E}): binning 4 shards {info['bin_sharded']:.4f} s, 1 shard {info['bin_one']:.4f} s; "
+          f"EM 4 shards {info['em_sharded']:.4f} s, 1 shard {info['em_one']:.4f} s (host clock, "
+          f"copies back included); wall {wall:.4f} s with the mode mut leg, {info['bin_launches']} bin "
+          f"and {info['em_launches']} EM launches in all; bitwise equal to one shard [{smi}]", flush=True)
+    runs = {}
+    counts = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    for n in counts:
+        out = os.path.join(tmp, f"devices{n}")
+        r = runs[n] = cli_run(argv + ["--binning", "sharded", "--devices", str(n)], out)
+        check(r["provider"] == f"mesh[{n}]:cuda-kernel:float32", f"--devices {n} provider {r['provider']}")
+        check(r["events"]["mut_suffstats"]["binning"] == "cuda-kernel:float32", f"--devices {n} bins on the card")
+        check(r["bin"] == n and r["em"] == n, f"--devices {n}: a bin and an EM launch a card "
+              f"({r['bin']}, {r['em']})")
+        check(same_bytes(out + ".coal", os.path.join(tmp, "bin_sharded.coal")),
+              f"--devices {n} --binning sharded writes --binning sharded's bytes")
+        st = r["timings"]
+        print(f"mode mut --devices {n} --binning sharded B={B_E2E}: wall {r['wall']:.4f} s; parse "
+              f"{st['parse']:.4f} s, binning {st['binning']:.4f} s, bootstrap {st['bootstrap']:.4f} s, "
+              f"em {st['em']:.4f} s; provider {r['provider']}, {r['bin']} bin and {r['em']} EM launches; "
+              f".coal bytes equal to --binning sharded without --devices [{smi}]", flush=True)
+    if len(counts) == 1:
+        print(f"--devices 2: not run, the machine has {torch.cuda.device_count()} card", flush=True)
+    return dict(dryrun=info, devices=runs)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ranks_phase(argv: list[str], tmp: str, smi: str) -> dict:
+    """Phase 16: two ranks of the CLI on the one card (gloo merge), under
+    --binning auto and device; rank 0's .coal against the single-process
+    card runs of phases 5 and 9."""
+    out = {}
+    for binning, single in (("auto", "out_warm.coal"), ("device", "bin_warm.coal")):
+        prefix = os.path.join(tmp, f"ranks_{binning}")
+        port = free_port()
+        env = dict(os.environ, COLATE_TPU_LOG="json")
+        cmd = [sys.executable, "-m", "colate_tpu_torch", *argv, "--binning", binning, "-o", prefix,
+               "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for i in range(2)]
+        ranks = []
+        try:
+            for i, p in enumerate(procs):
+                _, err = p.communicate(timeout=300)
+                check(p.returncode == 0, f"rank {i} --binning {binning} exits 0: {err[-2000:]}")
+                ev = {}
+                for line in err.splitlines():
+                    if line.startswith("{"):
+                        rec = json.loads(line)
+                        ev[rec["event"]] = rec
+                ranks.append(dict(wall=time.perf_counter() - t0, merge=ev["multihost_merge"],
+                                  em=ev["mut_em"], suffstats=ev["mut_suffstats"]))
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait(timeout=30)
+        check(same_bytes(prefix + ".coal", os.path.join(tmp, single)),
+              f"2 ranks --binning {binning}: rank 0 writes the single-process bytes")
+        for i, r in enumerate(ranks):
+            check(r["merge"]["device"] == "cuda:0" and r["em"]["provider"] == "cuda-kernel:float32",
+                  f"rank {i} ran on cuda:0 with the EM kernel")
+            print(f"2 ranks on one card, --binning {binning}, B={B_E2E}: rank {i} wall {r['wall']:.4f} s "
+                  f"(one-shot process), {r['merge']['chroms_local']} chromosomes, merge "
+                  f"(dcn_merge) {r['merge']['sec']:.4f} s, binning {r['suffstats']['binning']}, em "
+                  f"{r['em']['sec']:.4f} s [{smi}]", flush=True)
+        print(f"2 ranks --binning {binning}: rank 0's .coal byte-identical to the single-process card "
+              f"run", flush=True)
+        out[binning] = ranks
+    return out
+
+
+def parity_phase(tmp: str, smi: str) -> None:
+    """Phase 17: the byte-identity routes (--sampling mc_parity, --em_dtype
+    float64) write the same .coal on the card as on the CPU, at B=8 on
+    tests/test_torch_cuda.py's fixture."""
+    from colate_tpu_torch.fixtures import make_fixture
+
+    fix = make_fixture(os.path.join(tmp, "small"), n_per_chrom=3000, seed=5)
+    base = ["--mode", "mut", "--mut", fix["mut_prefix"], "--target_tmp", fix["target"],
+            "--reference_tmp", fix["reference"], "--chr", fix["chrfile"], "--bins", BINS,
+            "--seed", "3", "--num_bootstraps", "8"]
+    for extra in (["--sampling", "mc_parity"], ["--em_dtype", "float64"]):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            prefix = os.path.join(tmp, f"parity_{extra[1]}_{device}")
+            runs[device] = cli_run(base + extra + ["--torch_device", device], prefix)
+        check(runs["cuda"]["provider"] == "torch:float64(cuda)", f"{extra}: the f64 EM on the card")
+        check(same_bytes(*(os.path.join(tmp, f"parity_{extra[1]}_{d}.coal") for d in ("cuda", "cpu"))),
+              f"{' '.join(extra)}: the .coal on the card is the CPU's bytes")
+        print(f"{' '.join(extra)} B=8: .coal bytes on the card equal --torch_device cpu; em "
+              f"{runs['cuda']['timings']['em']:.4f} s on the card, {runs['cpu']['timings']['em']:.4f} s "
+              f"on the CPU [{smi}]", flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -842,26 +1081,13 @@ def main(argv: list[str] | None = None) -> int:
         check(rel64 <= 1e-9, "torch f64 EM on the card within 1e-9 of the host EM")
 
         # ---- 5. the main path: mode mut through the CLI, B=1024 ----
-        os.environ["COLATE_TPU_LOG"] = "json"
         runs = {}
         for phase in ("cold", "warm"):
             out_prefix = os.path.join(tmp, f"out_{phase}")
-            log = io.StringIO()
-            em_kernel.launches = 0
-            t0 = time.perf_counter()
-            with contextlib.redirect_stderr(log):
-                rc = cli.main(argv + ["-o", out_prefix])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_launch = em_kernel.launches
-            events = {}
-            for line in log.getvalue().splitlines():
-                if line.startswith("{"):
-                    rec = json.loads(line)
-                    events[rec["event"]] = rec
-            check(rc == 0, f"{phase} CLI run exits 0 (got {rc})")
-            check(events["mut_em"]["provider"] == "cuda-kernel:float32",
-                  f"{phase} run took the CUDA kernel (provider {events['mut_em']['provider']})")
+            r = cli_run(argv, out_prefix)
+            wall, n_launch, events = r["wall"], r["em"], r["events"]
+            check(r["provider"] == "cuda-kernel:float32",
+                  f"{phase} run took the CUDA kernel (provider {r['provider']})")
             check(n_launch == 1, f"{phase} run launched the EM kernel once (got {n_launch})")
             coal = read_coal_rates(out_prefix + ".coal")
             check(coal.shape == (B_E2E, E), f"{phase} .coal shape {coal.shape}")
@@ -877,7 +1103,6 @@ def main(argv: list[str] | None = None) -> int:
                   f"binning {st.get('binning', 0.0):.4f} s, bootstrap {st['bootstrap']:.4f} s, "
                   f"em {st['em']:.4f} s; {n_launch} kernel launches, {runs[phase]['iters']} "
                   f"iterations; .coal vs host f64 EM rel {rel:.3e} (<= 1e-3) [{smi}]", flush=True)
-        del os.environ["COLATE_TPU_LOG"]
 
         # ---- 6. times: a chunk, and the whole EM against the chunked route ----
         info = em_kernel.kernel_info(E)
@@ -1043,30 +1268,16 @@ def main(argv: list[str] | None = None) -> int:
         check(rel_plain <= 2e-5, "whole genome: bin kernel within 2e-5 of its plain version")
         check(rel_native <= 5e-5, "whole genome: bin kernel within 5e-5 of native f64")
         check(same, "whole genome: bin_sites_analytic gives the kernel's sums")
-        del sites, stream_host, stream, native, e2e, hk, hp, ours
+        del stream_host, stream, native, e2e, hk, hp, ours
 
         # ---- 9. the main path of this slice: mode mut --binning device ----
         native_coal = read_coal_rates(os.path.join(tmp, "out_warm.coal"))
-        os.environ["COLATE_TPU_LOG"] = "json"
         runs9 = {}
         for phase in ("cold", "warm", "sharded"):
             out_prefix = os.path.join(tmp, f"bin_{phase}")
             binning = "sharded" if phase == "sharded" else "device"
-            log = io.StringIO()
-            em_kernel.launches = 0
-            bin_kernel.launches = 0
-            t0 = time.perf_counter()
-            with contextlib.redirect_stderr(log):
-                rc = cli.main(argv + ["--binning", binning, "-o", out_prefix])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_bin, n_em = bin_kernel.launches, em_kernel.launches
-            events = {}
-            for line in log.getvalue().splitlines():
-                if line.startswith("{"):
-                    rec = json.loads(line)
-                    events[rec["event"]] = rec
-            check(rc == 0, f"--binning {binning} {phase} CLI run exits 0 (got {rc})")
+            r = cli_run(argv + ["--binning", binning], out_prefix)
+            wall, n_bin, n_em, events = r["wall"], r["bin"], r["em"], r["events"]
             check(events["mut_suffstats"]["binning"] == "cuda-kernel:float32",
                   f"{phase} run binned with the CUDA kernel "
                   f"({events['mut_suffstats']['binning']})")
@@ -1085,9 +1296,8 @@ def main(argv: list[str] | None = None) -> int:
                   f"{st['bootstrap']:.4f} s, em {st['em']:.4f} s; {n_bin} bin and {n_em} EM kernel "
                   f"launches; .coal vs --binning auto (native) rel {rel:.3e} (<= 1e-3) [{smi}]",
                   flush=True)
-        del os.environ["COLATE_TPU_LOG"]
-        check(filecmp.cmp(os.path.join(tmp, "bin_warm.coal"), os.path.join(tmp, "bin_sharded.coal"),
-                          shallow=False), "--binning sharded writes --binning device's .coal")
+        check(same_bytes(os.path.join(tmp, "bin_warm.coal"), os.path.join(tmp, "bin_sharded.coal")),
+              "--binning sharded writes --binning device's .coal")
         stats = {}
         for binning in ("device", "sharded"):
             c = cli.mut_config(cli.build_parser().parse_args(
@@ -1096,6 +1306,13 @@ def main(argv: list[str] | None = None) -> int:
         check(all(np.array_equal(a, b) for a, b in zip(stats["device"][:4], stats["sharded"][:4])),
               "--binning sharded bins bitwise as --binning device")
         print("--binning sharded: histograms and .coal bitwise equal to --binning device", flush=True)
+
+        # ---- 14-17. --checkpoint, shards and ranks, parity on the card ----
+        ckpt = checkpoint_phase(argv, tmp, smi)
+        shards = shard_phase(sites, argv, tmp, dev, smi)
+        del sites
+        ranks_phase(argv, tmp, smi)
+        parity_phase(tmp, smi)
 
         # ---- 10-13. the tree estimators ----
         programs, anc, mut, coords = tree_layers(dev, smi)
@@ -1112,6 +1329,12 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "colate_tpu/ops/em_pallas.py:142",
         "launches": runs["cold"]["launches"],
         "launches_per_run": runs["warm"]["launches"],
+        "launches_by_path": {
+            "checkpoint_default_chunk": ckpt["uninterrupted"]["em"],
+            "checkpoint_chunk128": ckpt["chunk128_launches"],
+            "devices1": shards["devices"][1]["em"],
+            "dryrun_4_shards_one_card": shards["dryrun"]["em_launches"],
+        },
         "max_abs_err": max(max_abs, run_abs),
         "ms": em_ms,
         "plain_ms": plain_run_ms,
@@ -1125,6 +1348,10 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "colate_tpu/ops/bin_pallas.py:89",
         "launches": runs9["cold"]["bin_launches"],
         "launches_per_run": runs9["warm"]["bin_launches"],
+        "launches_by_path": {
+            "devices1_sharded": shards["devices"][1]["bin"],
+            "dryrun_4_shards_one_card": shards["dryrun"]["bin_launches"],
+        },
         "max_abs_err": bin_abs,
         "ms": bin_ms,
         "plain_ms": bin_plain_ms,

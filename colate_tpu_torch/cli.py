@@ -13,9 +13,13 @@ native walks; the torch program on the CPU for ancient leaves in mode
 tree).
 
 ``--binning device`` and ``--binning sharded`` bin ``.colate.in`` inputs
-on ``--torch_device``.  Without ``--devices`` (multi-GPU is not ported)
-``sharded`` is one shard: the block-aligned kernel over the whole stream,
-which is what ``device`` runs, so the two write the same histograms.
+on ``--torch_device``.  Without ``--devices`` ``sharded`` is one shard:
+the block-aligned kernel over the whole stream, which is what ``device``
+runs, so the two write the same histograms.  ``--devices N`` splits the
+bootstrap EM (and the binning under ``sharded``) over the first N cards;
+``--checkpoint`` caches the histograms and the EM's loop state;
+``--coordinator/--num_processes/--process_id`` run one process per rank
+with ``torch.distributed`` (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -82,40 +86,49 @@ def _build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="EM working precision (auto: the float32 CUDA "
                         "kernel on a card; on the CPU the host f64 EM up "
-                        "to 800 replicates, torch f64 above; f64 for "
-                        "--sampling mc_parity)")
+                        "to 800 replicates, torch f64 above and under "
+                        "--checkpoint or --devices; f64 for --sampling "
+                        "mc_parity)")
     p.add_argument("--checkpoint", action="store_true",
                    help="cache per-block histograms to <output>.suffstats.npz "
-                        "keyed by an input fingerprint; reruns skip "
-                        "parse+binning (analytic mode)")
+                        "keyed by an input fingerprint, so reruns skip "
+                        "parse+binning, and save the EM's loop state to "
+                        "<output>.emstate.npz, so a killed run resumes "
+                        "(analytic mode)")
     p.add_argument("--per_chr_bam", action="store_true",
                    help="mode mut with --target_bam+--reference_bcf: read "
                         "one BAM per chromosome (<target_bam>_chr<name>.bam) "
                         "instead of one multi-contig BAM (the reference's "
                         "parse_bamvcf layout, coal.cpp:1229-1510)")
     p.add_argument("--devices", type=int,
-                   help="mode mut: shard bootstrap-EM over the first N "
-                        "local devices (parallel/mesh.py); default = "
-                        "single-device")
+                   help="mode mut: split the bootstrap EM (and the binning "
+                        "under --binning sharded) over the first N cards "
+                        "(the CUDA EM kernel on each; parallel/mesh.py), or N "
+                        "shards under --torch_device cpu; raises when torch "
+                        "sees fewer cards; default: one device")
     p.add_argument("--binning",
                    choices=["auto", "native", "device", "sharded"],
                    default="auto",
-                   help="mode mut analytic-binning backend: auto (native "
-                        "C++ f64 host binner, device fallback), native "
-                        "(require it), device (f32 XLA slab), sharded "
-                        "(mesh path — bitwise invariant to block-aligned "
-                        "mesh size)")
+                   help="mode mut analytic-binning backend: auto (the "
+                        "native C++ f64 host binning, fused with the parse), "
+                        "native (the same after a staged join), device (the "
+                        "CUDA binning kernel on --torch_device), sharded "
+                        "(the kernel over the --devices cards — bitwise "
+                        "invariant to their count)")
     p.add_argument("--coordinator",
-                   help="multi-process mode mut: jax.distributed "
-                        "coordinator address host:port (launch one process "
-                        "per host with --num_processes/--process_id; "
-                        "chromosomes are sharded across processes and the "
-                        "sufficient statistics merged over DCN)")
+                   help="multi-process mode mut: the torch.distributed "
+                        "rendezvous address host:port (launch one process "
+                        "per rank with --num_processes/--process_id; each "
+                        "rank parses and bins its chromosomes on its card, "
+                        "cuda:<LOCAL_RANK or rank> modulo the cards, the "
+                        "histograms are merged over gloo, and rank 0 writes "
+                        "the .coal)")
     p.add_argument("--num_processes", type=int,
                    help="total process count for --coordinator runs "
-                        "(defaults to the JAX env vars / cloud autodetect)")
+                        "(default: WORLD_SIZE, with MASTER_ADDR/MASTER_PORT)")
     p.add_argument("--process_id", type=int,
-                   help="this process's rank for --coordinator runs")
+                   help="this process's rank for --coordinator runs "
+                        "(default: RANK)")
     return p
 
 
@@ -187,16 +200,22 @@ def _dispatch(argv: list[str] | None = None) -> int:
         from colate_tpu_torch.models.tree_coal import run_tree_mode
 
         return run_tree_mode(args)
-    if args.devices is not None:
-        return _not_ported("--devices", "multi-GPU")
-    if args.checkpoint:
-        return _not_ported("--checkpoint", "--checkpoint")
-    if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
-        return _not_ported("--coordinator/--num_processes/--process_id", "multi-process")
     if args.target_bcf or args.reference_bcf or args.target_bam or args.reference_bam:
         return _not_ported("mode mut on --target_bcf/--reference_bcf/--target_bam/"
                            "--reference_bam", "BCF/BAM inputs")
     _require_card(args)
+    if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
+        # one process per rank runs this same command; rank 0 writes the .coal
+        import torch.distributed as dist
+
+        from colate_tpu_torch.parallel.multihost import init_distributed, run_mut_multihost
+
+        init_distributed(args.coordinator, args.num_processes, args.process_id)
+        try:
+            run_mut_multihost(mut_config(args), args.torch_device)
+        finally:
+            dist.destroy_process_group()
+        return 0
 
     from colate_tpu_torch.models.mut_em import run_mut_and_write
 
@@ -239,7 +258,9 @@ def mut_config(args):
         filters=args.filters,
         sampling=args.sampling,
         em_dtype=args.em_dtype,
+        checkpoint=args.checkpoint,
         per_chr_bam=args.per_chr_bam,
+        devices=args.devices,
         binning=args.binning,
     )
 

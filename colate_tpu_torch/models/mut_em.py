@@ -2,19 +2,20 @@
 device, EM on the device.
 
 Port of colate_tpu/models/mut_em.py (``MutResult``, ``resolve_tmp_inputs``,
-the ``.colate.in`` branch of ``compute_suffstats``, ``run_mut``,
-``finish_from_suffstats``, ``run_mut_and_write``) without its mesh and
-checkpoint branches.  The host stages are the port's own copies of the
-JAX package's: the native C++ prefilter, join and binning, the parsers,
-the numpy bootstrap, the epoch grid and the ``.coal`` writer.  The
-binning is one of:
+the ``.colate.in`` branch of ``compute_suffstats``, ``run_mut`` with its
+suffstats cache, ``finish_from_suffstats`` with its ``--devices`` and EM
+checkpoint branches, ``run_mut_and_write``).  The host stages are the
+port's own copies of the JAX package's: the native C++ prefilter, join
+and binning, the parsers, the numpy bootstrap, the epoch grid and the
+``.coal`` writer.  The binning is one of:
 
 - ``native``: the host C++ inside :func:`compute_suffstats` (``--binning
   auto|native``);
 - ``mc_parity(host)``: the reference's draw replay (``--sampling
   mc_parity``, whatever ``--binning`` says);
 - ``cuda-kernel:float32``: ``--binning device|sharded`` on a card, the
-  CUDA kernel of ops/bin_kernel.py;
+  CUDA kernel of ops/bin_kernel.py (``sharded``: over the ``--devices``
+  cards, parallel/mesh.py, or the run's one device);
 - ``torch-twin:float32(cpu)``: the same on the CPU, its plain torch version.
 
 The EM is one of:
@@ -24,7 +25,19 @@ The EM is one of:
 - ``cuda-kernel:float32``: the CUDA EM kernel, one launch to convergence
   (ops/em_kernel.py);
 - ``torch-twin:float32(cpu)``: its plain torch version on the CPU;
-- ``torch:float64(<device>)``: the torch EM (ops/em.py) in f64.
+- ``torch:float64(<device>)``: the torch EM (ops/em.py) in f64;
+- ``mesh[N]:cuda-kernel:float32`` or ``mesh[N]:torch:float64(<device>)``:
+  ``--devices N``, the replicates split over N devices (parallel/mesh.py),
+  the kernel on cards under ``--em_dtype auto|float32``, else the
+  replicate-sequential f64 EM;
+- ``<EM>(checkpointed)``: ``--checkpoint``, the kernel (auto on a card)
+  or the torch f64 EM (auto on the CPU) with its loop state saved to
+  ``<output>.emstate.npz`` (ops/em.py:run_em_checkpointed).
+
+``--checkpoint`` also caches the per-block histograms in
+``<output>.suffstats.npz`` (utils/checkpoint.py), so a rerun on unchanged
+inputs skips parse and binning.  Neither cache applies to ``--sampling
+mc_parity``, nor does ``--devices``.
 """
 
 from __future__ import annotations
@@ -50,7 +63,7 @@ from colate_tpu_torch.formats.fasta import read_mask
 from colate_tpu_torch.formats.mut import MutTable
 from colate_tpu_torch.hostrng import MT19937
 from colate_tpu_torch.ops.bootstrap import bootstrap_weights, redistribute_emp, weighted_counts
-from colate_tpu_torch.ops.em import run_em, run_em_native
+from colate_tpu_torch.ops.em import run_em, run_em_checkpointed, run_em_native
 from colate_tpu_torch.ops.em_kernel import run_em_kernel
 from colate_tpu_torch.ops.epochs import epochs_from_bins, epochs_from_coal_file
 from colate_tpu_torch.pipeline.binning import (
@@ -59,6 +72,7 @@ from colate_tpu_torch.pipeline.binning import (
     bin_sites_mc_parity,
 )
 from colate_tpu_torch.pipeline.join import fused_tmptmp_stream, join_tmptmp, mut_prefilter_native
+from colate_tpu_torch.utils.checkpoint import input_fingerprint, load_suffstats, save_suffstats
 from colate_tpu_torch.utils.progress import log_event
 
 # EM_HOST_MAX_B is the JAX package's threshold, set by a TPU's jit and
@@ -113,7 +127,7 @@ def compute_suffstats(
     rng,
     seed: int,
     timings: dict,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ):
     """Parse + bin stage of mode mut on ``.colate.in`` inputs: the per-block
     sufficient statistics ``(sh_b, ns_b, se_b, ne_b, num_sites,
@@ -124,8 +138,9 @@ def compute_suffstats(
       from the two files;
     - otherwise the staged decode and join, then the draw replay
       (``mc_parity``), the port's device binning on ``device``
-      (``--binning device|sharded``) or the native binning (``auto``,
-      ``native``).
+      (``--binning device``; ``sharded`` over the ``--devices`` first
+      devices of ``device``'s type, or on ``device``) or the native
+      binning (``auto``, ``native``).
     """
     t0 = time.time()
     if not (cfg.target_tmp and cfg.reference_tmp):
@@ -155,6 +170,12 @@ def compute_suffstats(
     # every parser forces age=0 (e.g. coal.cpp:597-598, 2073-2074)
     if parity:
         hists = bin_sites_mc_parity(sites, rng, age=0.0)
+    elif cfg.binning == "sharded":
+        from colate_tpu_torch.parallel.mesh import make_mesh, sharded_bin_sites
+
+        device = torch.device(device)
+        devices = make_mesh(cfg.devices, device.type) if cfg.devices else [device]
+        hists = sharded_bin_sites(devices, sites, 0.0)
     elif bins_on_device(cfg):
         hists = bin_sites_analytic(sites, 0.0, device)
     else:
@@ -176,7 +197,8 @@ def run_mut(cfg: MutRunConfig, device: str | torch.device = "cuda") -> MutResult
     device = torch.device(device)
     timings: dict = {}
     seed = cfg.seed if cfg.seed is not None else (int(time.time()) + os.getpid())
-    rng = MT19937(seed) if cfg.sampling == "mc_parity" else None
+    parity = cfg.sampling == "mc_parity"
+    rng = MT19937(seed) if parity else None
 
     mat_path = cfg.output + ".colate_mat"
     if os.path.exists(mat_path):
@@ -186,7 +208,28 @@ def run_mut(cfg: MutRunConfig, device: str | torch.device = "cuda") -> MutResult
             cfg, None, timings, device, rng=rng, seed=seed,
             counts=(shared_counts, notshared_counts),
         )
-    stats = suffstats(cfg, seed, rng=rng, timings=timings, device=device)
+    t0 = time.time()
+    stats = fp = None
+    ckpt_path = cfg.output + ".suffstats.npz"
+    if cfg.checkpoint and not parity:
+        # skip parse and binning when the inputs are unchanged
+        age, ref_age = _ages(cfg)
+        _, mut_files, tmask_files, rmask_files = resolve_tmp_inputs(cfg)
+        fp = input_fingerprint(
+            list(mut_files) + list(tmask_files or []) + list(rmask_files or [])
+            + [cfg.target_tmp, cfg.reference_tmp, cfg.target_bcf, cfg.reference_bcf,
+               cfg.target_bam, cfg.reference_bam, cfg.ref_genome],
+            extra=dict(age=age, ref_age=ref_age),
+        )
+        hit = load_suffstats(ckpt_path, fp)
+        if hit is not None:
+            stats = (*hit, hit[0].shape[0])
+            timings["parse"] = time.time() - t0
+            timings["binning"] = 0.0
+    if stats is None:
+        stats = suffstats(cfg, seed, rng=rng, timings=timings, device=device)
+        if fp is not None:
+            save_suffstats(ckpt_path, fp, *stats[:5])
     return finish_from_suffstats(cfg, stats, timings, device, rng=rng, seed=seed)
 
 
@@ -324,20 +367,27 @@ def finish_from_suffstats(
         sec_bootstrap=timings.get("bootstrap", 0.0),
     )
     t0 = time.time()
-    provider = em_provider(cfg.em_dtype, B, parity, device)
-    if provider == "native":
-        rates, logl, iters = run_em_native(epochs, init_rates, shared_counts, notshared_counts)
+    if cfg.devices and not parity:
+        provider, (rates, logl, iters) = _em_mesh(
+            cfg, device, epochs, init_rates, shared_counts, notshared_counts)
+    elif cfg.checkpoint and not parity:
+        provider, (rates, logl, iters) = _em_checkpointed(
+            cfg, device, epochs, init_rates, shared_counts, notshared_counts)
     else:
-        if "float32" in provider:
-            sc = torch.as_tensor(np.asarray(shared_counts, np.float32), device=device)
-            nc = torch.as_tensor(np.asarray(notshared_counts, np.float32), device=device)
-            out = run_em_kernel(epochs, init_rates, sc, nc)
+        provider = em_provider(cfg.em_dtype, B, parity, device)
+        if provider == "native":
+            rates, logl, iters = run_em_native(epochs, init_rates, shared_counts, notshared_counts)
         else:
-            out = run_em(
-                epochs, init_rates, np.asarray(shared_counts, np.float64),
-                np.asarray(notshared_counts, np.float64), dtype="float64", device=device,
-            )
-        rates, logl, iters = (x.cpu().numpy() for x in out)
+            if "float32" in provider:
+                sc = torch.as_tensor(np.asarray(shared_counts, np.float32), device=device)
+                nc = torch.as_tensor(np.asarray(notshared_counts, np.float32), device=device)
+                out = run_em_kernel(epochs, init_rates, sc, nc)
+            else:
+                out = run_em(
+                    epochs, init_rates, np.asarray(shared_counts, np.float64),
+                    np.asarray(notshared_counts, np.float64), dtype="float64", device=device,
+                )
+            rates, logl, iters = (x.cpu().numpy() for x in out)
     timings["em"] = time.time() - t0
     log_event("mut_em", provider=provider, iters=int(np.max(iters)), sec=timings["em"])
     return MutResult(
@@ -352,6 +402,45 @@ def finish_from_suffstats(
         timings=timings,
         em_provider=provider,
     )
+
+
+def _em_mesh(cfg: MutRunConfig, device: torch.device, epochs, init_rates, sc, nc):
+    """``--devices N``: the replicates over the first N devices of
+    ``device``'s type (colate_tpu/models/mut_em.py:460-495).  Returns
+    (provider, (rates, logl, iters))."""
+    from colate_tpu_torch.parallel.mesh import make_mesh, sharded_run_em
+
+    devices = make_mesh(cfg.devices, device.type)
+    kernel = device.type == "cuda" and cfg.em_dtype in ("auto", "float32")
+    out = sharded_run_em(devices, epochs, init_rates, sc, nc,
+                         backend="kernel" if kernel else "float64")
+    em = "cuda-kernel:float32" if kernel else f"torch:float64({device.type})"
+    return f"mesh[{len(devices)}]:{em}", out
+
+
+def _em_checkpointed(cfg: MutRunConfig, device: torch.device, epochs, init_rates, sc, nc):
+    """``--checkpoint``: the EM with its loop state in
+    ``<output>.emstate.npz`` (colate_tpu/models/mut_em.py:497-537).  Under
+    ``auto`` the f32 kernel on a card and the torch f64 EM on the CPU.  The
+    state's fingerprint names the provider, so a state another EM wrote
+    (the kernel's, say, for its plain version on the CPU) is not resumed.
+    Returns (provider, (rates, logl, iters))."""
+    import hashlib
+
+    B = cfg.num_bootstrap
+    em_dtype = cfg.em_dtype
+    if em_dtype == "auto":
+        em_dtype = "float64" if device.type == "cpu" else "float32"
+    provider = em_provider(em_dtype, B, False, device)
+    h = hashlib.sha256()
+    for a in (epochs, sc, nc):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(f"{B}:{em_dtype}:{provider}".encode())
+    out = run_em_checkpointed(
+        epochs, init_rates, np.asarray(sc, np.float64), np.asarray(nc, np.float64),
+        cfg.output + ".emstate.npz", h.hexdigest(), dtype=em_dtype, device=device,
+    )
+    return f"{provider}(checkpointed)", out
 
 
 def run_mut_and_write(cfg: MutRunConfig, device: str | torch.device = "cuda") -> MutResult:

@@ -5,6 +5,8 @@ K-chunked fixed-point loop with per-replicate freezing).  The bootstrap
 batch is a leading dimension written out, where the JAX package vmaps.
 The float64 branch follows the reference expression for expression: the
 byte identity of ``--sampling mc_parity`` runs rests on it.  Also holds
+the replicate-sequential EM of ``--devices`` (:func:`run_em_sequential`),
+the checkpointed EM of ``--checkpoint`` (:func:`run_em_checkpointed`) and
 the port's own ctypes wrapper of the native host EM (``cn_em_run``).
 
 Inputs may be numpy arrays or tensors; results are tensors on ``device``.
@@ -249,7 +251,7 @@ def run_em(
     check_every: int | None = None,
     resume_state=None,
     return_state: bool = False,
-    device="cpu",
+    device="cuda",
     step=None,
 ):
     """EM to convergence for all bootstrap replicates
@@ -329,6 +331,115 @@ def run_em(
     if return_state:
         return it, rates, ll_prev, conv, iters
     return rates.to(out_dtype), ll_prev, iters
+
+
+def run_em_sequential(
+    epochs,
+    init_rates,
+    shared_counts,
+    notshared_counts,
+    max_iter: int = EM_MAX_ITER,
+    min_iter: int = EM_MIN_ITER,
+    dtype: str | None = None,
+    device="cuda",
+):
+    """Replicate-sequential EM: a B=1 :func:`run_em` per replicate
+    (colate_tpu/ops/em.py:run_em_sequential).
+
+    Every replicate runs the same B=1 program however many replicates
+    share its device, so any split of the replicates over devices is
+    bitwise transparent (parallel/mesh.py:sharded_run_em, backend
+    "float64").  Results as :func:`run_em`."""
+    sc = _tensor(shared_counts, device)
+    nc = _tensor(notshared_counts, device)
+    # range(max(B, 1)): B=0 runs once on the empty slice, giving empty results
+    parts = [
+        run_em(epochs, init_rates, sc[b : b + 1], nc[b : b + 1], max_iter=max_iter,
+               min_iter=min_iter, dtype=dtype, device=device)
+        for b in range(max(sc.shape[0], 1))
+    ]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def run_em_checkpointed(
+    epochs,
+    init_rates,
+    shared_counts,
+    notshared_counts,
+    ckpt_path: str,
+    fingerprint: str,
+    dtype: str | None = None,
+    device="cuda",
+    chunk: int = 4096,
+):
+    """The EM with its loop state (it, rates, logl, conv, iters) saved to
+    ``ckpt_path`` after every ``chunk`` iterations
+    (colate_tpu/ops/em.py:run_em_checkpointed).  A killed run resumes from
+    the saved state, so it returns what an uninterrupted run returns: the
+    chunk only caps ``max_iter`` of each call.  The file is written to a
+    temporary name and renamed, and removed when the run finishes; a state
+    whose fingerprint or dtype differs is not resumed.
+
+    One driver over two EMs on ``device``: ``dtype`` "float64" (default)
+    the torch EM (:func:`run_em`), "float32" the EM kernel
+    (ops/em_kernel.py:run_em_kernel): one launch of the CUDA kernel per
+    chunk on a card, its plain version on the CPU.
+
+    ``COLATE_EM_DIE_AFTER_CHUNKS=<k>`` exits the process (code 17) after
+    the k-th write, and ``COLATE_EM_CKPT_CHUNK`` overrides ``chunk``: the
+    hooks of the kill-and-resume tests.
+
+    Returns numpy (rates [B,E] f64, logl [B] f64, iters [B] i32)."""
+    import os
+    import zipfile
+
+    wdt_name = "float64" if dtype in (None, "float64") else "float32"
+    if wdt_name == "float32":
+        from colate_tpu_torch.ops.em_kernel import run_em_kernel
+
+        sc = _tensor(shared_counts, device).to(torch.float32)
+        nc = _tensor(notshared_counts, device).to(torch.float32)
+
+        def run(bound, state):
+            return run_em_kernel(epochs, init_rates, sc, nc, max_iter=bound,
+                                 resume_state=state, return_state=True)
+    else:
+        sc = _tensor(shared_counts, device)
+        nc = _tensor(notshared_counts, device)
+
+        def run(bound, state):
+            return run_em(epochs, init_rates, sc, nc, max_iter=bound, dtype="float64",
+                          resume_state=state, return_state=True, device=device)
+
+    state = None
+    if os.path.exists(ckpt_path):
+        try:
+            with np.load(ckpt_path, allow_pickle=False) as z:
+                if str(z["fingerprint"]) == fingerprint and str(z["dtype"]) == wdt_name:
+                    state = tuple(z[k] for k in ("it", "rates", "ll", "conv", "iters"))
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            state = None
+
+    die_after = int(os.environ.get("COLATE_EM_DIE_AFTER_CHUNKS", "0"))
+    chunk = int(os.environ.get("COLATE_EM_CKPT_CHUNK", str(chunk)))
+    chunks_done = 0
+    while True:
+        it0 = 0 if state is None else int(state[0])
+        out = run(min(it0 + chunk, EM_MAX_ITER), state)
+        state = (np.int64(out[0]), *(x.cpu().numpy() for x in out[1:]))
+        done = bool(state[3].all()) or int(state[0]) >= EM_MAX_ITER
+        tmp = ckpt_path + ".tmp"
+        with open(tmp, "wb") as fh:
+            np.savez(fh, fingerprint=fingerprint, dtype=wdt_name, it=state[0], rates=state[1],
+                     ll=state[2], conv=state[3], iters=state[4])
+        os.replace(tmp, ckpt_path)
+        chunks_done += 1
+        if die_after and chunks_done >= die_after and not done:
+            os._exit(17)
+        if done:
+            break
+    os.remove(ckpt_path)
+    return state[1].astype(np.asarray(epochs).dtype), state[2], state[4]
 
 
 def state_from_jax(state):

@@ -46,15 +46,21 @@ from colate_tpu_torch.pipeline.join import JoinedSites
 MAX_BLOCKS = 65536
 
 
-def bin_sites_analytic(sites: JoinedSites, age: float = 0.0, device: str | torch.device = "cpu"):
+def bin_sites_analytic(sites: JoinedSites, age: float = 0.0, device: str | torch.device = "cuda"):
     """The four histograms of ``sites``, binned on ``device``.  Raises past
     MAX_BLOCKS blocks, as the reference does."""
+    hists = bin_sites_device(sites, age, device).cpu().numpy()
+    return tuple(np.ascontiguousarray(hists[:, j]) for j in range(4))
+
+
+def bin_sites_device(sites: JoinedSites, age: float, device: str | torch.device) -> torch.Tensor:
+    """The histograms [num_blocks, 4, 185] float64 of ``sites`` as a tensor
+    on ``device``: the binning of :func:`bin_sites_analytic` before its
+    copy back, queued on the device without waiting for it."""
     from colate_tpu_torch.ops.bin_kernel import bin_chunks, site_stream
 
     device = torch.device(device)
-    stream = site_stream(sites, age, pin=device.type == "cuda").to(device)
-    hists = bin_chunks(stream).cpu().numpy()
-    return tuple(np.ascontiguousarray(hists[:, j]) for j in range(4))
+    return bin_chunks(site_stream(sites, age, pin=device.type == "cuda").to(device))
 
 
 def bin_sites_analytic_native(sites: JoinedSites, age: float = 0.0):

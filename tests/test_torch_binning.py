@@ -53,7 +53,7 @@ def test_matches_pallas_kernel(case):
     sites, age = synthetic_sites(**kw), kw.get("age", 0.0)
     ref = bin_sites_pallas(sites, age, interpret=True)
     assert ref is not None
-    assert hist_rel(bin_sites_analytic(sites, age), ref) <= 2e-5
+    assert hist_rel(bin_sites_analytic(sites, age, "cpu"), ref) <= 2e-5
 
 
 @pytest.mark.parametrize("case", [*CASES, "sorted-20000-3000"])
@@ -62,7 +62,7 @@ def test_matches_xla_and_native(case, native_lib):
     (``_nb_cap(3000) is None``), so only XLA and native hold them."""
     kw = CASES.get(case, dict(n=20000, nb=3000, seed=4))
     sites, age = synthetic_sites(**kw), kw.get("age", 0.0)
-    ours = bin_sites_analytic(sites, age)
+    ours = bin_sites_analytic(sites, age, "cpu")
     assert hist_rel(ours, jax_binning.bin_sites_analytic(sites, age)) <= 2e-5
     assert hist_rel(ours, jax_binning.bin_sites_analytic_native(sites, age)) <= 5e-5
 
@@ -71,7 +71,7 @@ def test_ages_beyond_the_table(native_lib):
     """Emp sites put the mass beyond the table into the last bin; regular
     sites beyond it have no in-table overlap and bin nothing."""
     sites = beyond_table_sites()
-    ours = bin_sites_analytic(sites)
+    ours = bin_sites_analytic(sites, 0.0, "cpu")
     assert ours[1][:, -1].min() > 0
     assert hist_rel(ours, bin_sites_pallas(sites, interpret=True)) <= 2e-5
     assert hist_rel(ours, jax_binning.bin_sites_analytic(sites)) <= 2e-5
@@ -80,7 +80,7 @@ def test_ages_beyond_the_table(native_lib):
 
 def test_split_at_a_block_boundary_is_bitwise():
     sites = synthetic_sites(n=9000, nb=9, seed=7)
-    whole = bin_sites_analytic(sites)
+    whole = bin_sites_analytic(sites, 0.0, "cpu")
     cut = int(np.searchsorted(sites.block_id, 5))
     parts = []
     for lo, hi in ((0, cut), (cut, len(sites))):
@@ -88,17 +88,17 @@ def test_split_at_a_block_boundary_is_bitwise():
             age_begin=sites.age_begin[lo:hi], age_end=sites.age_end[lo:hi],
             w_shared=sites.w_shared[lo:hi], w_notshared=sites.w_notshared[lo:hi],
             block_id=sites.block_id[lo:hi], num_blocks=sites.num_blocks,
-        )))
+        ), 0.0, "cpu"))
     for w, a, b in zip(whole, *parts):
         np.testing.assert_array_equal(w, a + b)
 
 
 def test_empty_and_tiny():
     empty = synthetic_sites(n=0, nb=0)
-    for h in bin_sites_analytic(empty):
+    for h in bin_sites_analytic(empty, 0.0, "cpu"):
         assert h.shape == (0, 185)
     tiny = synthetic_sites(n=3, nb=1, seed=5)
-    for a, b in zip(bin_sites_analytic(tiny), jax_binning.bin_sites_analytic(tiny)):
+    for a, b in zip(bin_sites_analytic(tiny, 0.0, "cpu"), jax_binning.bin_sites_analytic(tiny)):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-6)
 
 
@@ -106,7 +106,7 @@ def test_past_max_blocks_raises_like_the_reference():
     assert MAX_BLOCKS == jax_binning.MAX_BLOCKS
     sites = synthetic_sites(n=10, nb=MAX_BLOCKS + 1)
     with pytest.raises(ValueError, match="exceeds MAX_BLOCKS") as ours:
-        bin_sites_analytic(sites)
+        bin_sites_analytic(sites, 0.0, "cpu")
     with pytest.raises(ValueError, match="exceeds MAX_BLOCKS") as ref:
         jax_binning.bin_sites_analytic(sites)
     assert str(ours.value) == str(ref.value)

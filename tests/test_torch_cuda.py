@@ -23,7 +23,11 @@ programs (float64 torch, no atomics) on the card against the same
 programs on the CPU at rtol 1e-12 (another order of sums), and two runs
 bitwise equal; the two CLI modes on the card against ``--torch_device
 cpu`` within 1e-5 (the goldens' tolerance: the ``.coal`` prints six
-digits) with the same NaN pattern.
+digits) with the same NaN pattern.  The byte-identity routes
+(``--sampling mc_parity``, ``--em_dtype float64``) on the card against
+``--torch_device cpu``, and the ``--checkpoint``, shard and rank paths
+against their single uninterrupted runs: equal bytes, bitwise equal
+histograms and rates.
 """
 
 import filecmp
@@ -243,6 +247,27 @@ def test_cli_auto_takes_the_kernel(card, fix, tmp_path, capsys):
     assert rel[native >= 1e-4].max() <= 1e-4
 
 
+@pytest.mark.parametrize("extra", [("--sampling", "mc_parity"), ("--em_dtype", "float64")],
+                         ids=["mc_parity", "float64"])
+def test_f64_coal_on_the_card_is_the_cpu_bytes(card, fix, tmp_path, capsys, extra):
+    """The byte-identity routes (--sampling mc_parity, --em_dtype float64)
+    write the same .coal under --torch_device cuda as under cpu, where the
+    CPU tests hold them byte-identical to python -m colate_tpu."""
+    argv = ["--mode", "mut", "--mut", fix["mut_prefix"], "--target_tmp", fix["target"],
+            "--reference_tmp", fix["reference"], "--chr", fix["chrfile"], "--bins", "3,7,0.2",
+            "--seed", "3", "--num_bootstraps", "8", *extra]
+    for device in ("cuda", "cpu"):
+        assert cli.main(argv + ["-o", str(tmp_path / device), "--torch_device", device]) == 0
+    err = capsys.readouterr().err
+    providers = [ln.split("provider=")[1].split()[0] for ln in err.splitlines() if "mut_em " in ln]
+    a, b = (str(tmp_path / f"{d}.coal") for d in ("cuda", "cpu"))
+    if not filecmp.cmp(a, b, shallow=False):
+        ra, rb = CoalFile.read(a).rates, CoalFile.read(b).rates
+        rel = np.abs(ra - rb) / np.maximum(np.abs(rb), 1e-300)
+        pytest.fail(f"{extra}: .coal bytes differ ({providers}): {int((ra != rb).sum())} of "
+                    f"{ra.size} printed rates, max rel {rel.max():.3e}")
+
+
 def _bootstrap_counts(fix, B, seed):
     """Bootstrapped count matrices of a fixture, as mode mut makes them."""
     from colate_tpu_torch.config import MutRunConfig
@@ -316,7 +341,7 @@ def test_kernel_chunk_matches_f64(card, fix):
         torch.zeros(B, dtype=torch.bool), torch.zeros(B, dtype=torch.int32),
     )
     r64 = run_em(epochs, init, sc, nc, max_iter=K, min_iter=K, check_every=K,
-                 resume_state=state)[0].numpy()
+                 resume_state=state, device="cpu")[0].numpy()
     r32, _ = em_kernel.em_chunk(
         epochs, torch.as_tensor(ref, dtype=torch.float32, device=card),
         torch.as_tensor(sc, dtype=torch.float32, device=card),
@@ -406,6 +431,107 @@ def test_cli_binning_device_on_the_card(card, fix, tmp_path):
     _run(fix, str(tmp_path / "sharded"), "--em_dtype", "float64", "--torch_device", "cuda",
          "--binning", "sharded")
     assert filecmp.cmp(str(tmp_path / "dev.coal"), str(tmp_path / "sharded.coal"), shallow=False)
+
+
+# ---- --checkpoint, shards and ranks on the card ----
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _subprocess_env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, **extra)
+    return env
+
+
+def test_checkpoint_killed_and_resumed_on_the_card(card, fix, tmp_path):
+    """--checkpoint on the card (the EM kernel, a launch per chunk): a
+    process killed after its first 128-iteration chunk resumes from the
+    saved state and writes the bytes of an uninterrupted card run, which
+    are those of a run without --checkpoint."""
+    import subprocess
+    import sys
+
+    plain = str(tmp_path / "plain")
+    _run(fix, plain)
+    before = em_kernel.launches
+    _run(fix, str(tmp_path / "whole"), "--checkpoint")
+    assert em_kernel.launches == before + 1
+    assert filecmp.cmp(plain + ".coal", str(tmp_path / "whole.coal"), shallow=False)
+    out = str(tmp_path / "killed")
+    cmd = [sys.executable, "-m", "colate_tpu_torch", "--mode", "mut", "--mut", fix["mut_prefix"],
+           "--target_tmp", fix["target"], "--reference_tmp", fix["reference"], "--chr",
+           fix["chrfile"], "--bins", "3,7,0.2", "--seed", "3", "--num_bootstraps", "16",
+           "--checkpoint", "-o", out]
+    r = subprocess.run(cmd, env=_subprocess_env(COLATE_EM_CKPT_CHUNK="128",
+                                                COLATE_EM_DIE_AFTER_CHUNKS="1"),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 17, r.stderr[-2000:]
+    assert os.path.exists(out + ".emstate.npz")
+    r = subprocess.run(cmd, env=_subprocess_env(COLATE_EM_CKPT_CHUNK="128"), capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "provider=cuda-kernel:float32(checkpointed) " in r.stderr
+    assert not os.path.exists(out + ".emstate.npz")
+    assert filecmp.cmp(str(tmp_path / "whole.coal"), out + ".coal", shallow=False)
+
+
+def test_four_shards_on_one_card(card):
+    """sharded_bin_sites and sharded_run_em over [cuda:0] * 4 against one
+    shard, bitwise: one bin kernel launch a non-empty shard, one EM
+    launch a shard."""
+    from colate_tpu_torch.parallel.mesh import sharded_bin_sites, sharded_run_em
+
+    sites = bench_sites(300_000, nb=13)
+    before = bin_kernel.launches
+    four = sharded_bin_sites([card] * 4, sites)
+    assert bin_kernel.launches == before + 4
+    one = sharded_bin_sites([card], sites)
+    for a, b in zip(four, one):
+        np.testing.assert_array_equal(a, b)
+    epochs, _ = epochs_from_bins("3,7,0.2", 28.0, 0.0)
+    init = np.full(epochs.shape, INITIAL_COAL_RATE)
+    sc, nc = _synthetic_counts(130, seed=25)
+    before = em_kernel.launches
+    four = sharded_run_em([card] * 4, epochs, init, sc, nc, max_iter=1600, min_iter=200)
+    assert em_kernel.launches == before + 4
+    one = sharded_run_em([card], epochs, init, sc, nc, max_iter=1600, min_iter=200)
+    for a, b in zip(four, one):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_two_ranks_on_one_card(card, fix, tmp_path):
+    """Two ranks of the CLI share the card (gloo merge): rank 0 writes the
+    single-process card run's bytes, under --binning auto and device."""
+    import socket
+    import subprocess
+    import sys
+
+    for binning in ("auto", "device"):
+        single = str(tmp_path / f"single_{binning}")
+        _run(fix, single, "--binning", binning)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        multi = str(tmp_path / f"multi_{binning}")
+        cmd = [sys.executable, "-m", "colate_tpu_torch", "--mode", "mut", "--mut",
+               fix["mut_prefix"], "--target_tmp", fix["target"], "--reference_tmp",
+               fix["reference"], "--chr", fix["chrfile"], "--bins", "3,7,0.2", "--seed", "3",
+               "--num_bootstraps", "16", "--binning", binning, "-o", multi, "--coordinator",
+               f"127.0.0.1:{port}", "--num_processes", "2"]
+        procs = [subprocess.Popen(cmd + ["--process_id", str(i)], env=_subprocess_env(),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for i in range(2)]
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=600)
+                assert p.returncode == 0, err[-2000:]
+                assert "device=cuda:0 " in err
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait(timeout=30)
+        assert filecmp.cmp(single + ".coal", multi + ".coal", shallow=False)
 
 
 # ---- the tree estimators' programs ----

@@ -142,7 +142,7 @@ def _assert_f64_close(ours, ref):
 
 def test_run_em_f64_matches_jax(jax_f64):
     sc, nc = _counts()
-    ours = tem.run_em(EPOCHS, INIT, sc, nc, dtype="float64", min_iter=MIN_ITER)
+    ours = tem.run_em(EPOCHS, INIT, sc, nc, dtype="float64", min_iter=MIN_ITER, device="cpu")
     assert ours[0].dtype == torch.float64
     _assert_f64_close(ours, jax_f64[0])
 
@@ -154,7 +154,8 @@ def test_resume_from_jax_state(jax_f64):
     assert int(state[0]) == 1024 and not state[3].any()
     sc, nc = _counts()
     ours = tem.run_em(
-        EPOCHS, INIT, sc, nc, min_iter=MIN_ITER, resume_state=tem.state_from_jax(state)
+        EPOCHS, INIT, sc, nc, min_iter=MIN_ITER, resume_state=tem.state_from_jax(state),
+        device="cpu",
     )
     _assert_f64_close(ours, full)
 
@@ -164,13 +165,15 @@ def test_return_state_matches_jax(jax_f64):
     resuming it gives the same result as resuming JAX's state."""
     full, state = jax_f64
     sc, nc = _counts()
-    st = tem.run_em(EPOCHS, INIT, sc, nc, min_iter=MIN_ITER, max_iter=1024, return_state=True)
+    st = tem.run_em(EPOCHS, INIT, sc, nc, min_iter=MIN_ITER, max_iter=1024, return_state=True,
+                    device="cpu")
     assert st[0] == 1024
     np.testing.assert_allclose(st[1].numpy(), state[1], rtol=1e-9)
     np.testing.assert_allclose(st[2].numpy(), state[2], rtol=1e-12)
     np.testing.assert_array_equal(st[3].numpy(), state[3])
     np.testing.assert_array_equal(st[4].numpy(), state[4])
-    _assert_f64_close(tem.run_em(EPOCHS, INIT, sc, nc, min_iter=MIN_ITER, resume_state=st), full)
+    _assert_f64_close(tem.run_em(EPOCHS, INIT, sc, nc, min_iter=MIN_ITER, resume_state=st,
+                                 device="cpu"), full)
 
 
 def test_run_em_f32_matches_jax_tiers():
@@ -178,7 +181,7 @@ def test_run_em_f32_matches_jax_tiers():
     ref = np.asarray(
         jem.run_em(jnp.asarray(EPOCHS), jnp.asarray(INIT), jnp.asarray(sc), jnp.asarray(nc), dtype="float32")[0]
     )
-    ours = tem.run_em(EPOCHS, INIT, sc, nc, dtype="float32")[0].numpy()
+    ours = tem.run_em(EPOCHS, INIT, sc, nc, dtype="float32", device="cpu")[0].numpy()
     rel = np.abs(ours - ref) / np.maximum(np.abs(ref), 1e-300)
     strong, weak = ref >= 1e-4, ref >= 1e-6
     assert strong.sum() >= 4, "problem must have identified epochs"

@@ -140,7 +140,8 @@ def _chunked(sc, nc, **kw):
         new, wsum = em_kernel.em_chunk_reference(EPOCHS, rates.contiguous(), sc, nc, K)
         return new, wsum.to(torch.float64).sum(1)
 
-    return run_em(EPOCHS, INIT, sc, nc, dtype="float32", check_every=8, step=step, **kw)
+    return run_em(EPOCHS, INIT, sc, nc, dtype="float32", check_every=8, step=step, device="cpu",
+                  **kw)
 
 
 def test_em_run_reference_matches_the_chunked_run():
@@ -232,7 +233,7 @@ def test_chunk_at_one_and_many_epochs(bins):
     r32, w = em_kernel.em_chunk_reference(epochs, _t(np.broadcast_to(init, (3, n_ep))),
                                           _t(sc), _t(nc), 8)
     ref = run_em(epochs, init, sc.astype(np.float32), nc.astype(np.float32), dtype="float32",
-                 max_iter=8, min_iter=8, check_every=8)[0].numpy()
+                 max_iter=8, min_iter=8, check_every=8, device="cpu")[0].numpy()
     assert r32.shape == (3, n_ep) and torch.isfinite(r32).all() and torch.isfinite(w).all()
     nz = ref != 0
     assert nz.sum() >= 3 * min(n_ep, 4)

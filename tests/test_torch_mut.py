@@ -207,8 +207,8 @@ def test_suffstats_names_a_missing_native_library(fix, tmp_path, monkeypatch):
 
 def test_port_never_loads_jax(fix, tmp_path):
     """Importing the port, its fixture module and chip_smoke.py and running
-    mode mut under ``--binning auto``, ``device`` and ``--sampling
-    mc_parity``, mode tree (the native walk, and the torch program with
+    mode mut under ``--binning auto``, ``device``, ``--sampling mc_parity``
+    and ``--checkpoint --devices 2 --binning sharded``, mode tree (the native walk, and the torch program with
     ancient leaves) and mode local_ancestry (native, and the torch
     program) in a fresh interpreter, with the plain torch versions of the
     kernels, leaves jax and every module of colate_tpu out of
@@ -225,6 +225,7 @@ def test_port_never_loads_jax(fix, tmp_path):
         "import colate_tpu_torch.ops.em, colate_tpu_torch.ops.em_kernel\n"
         "import colate_tpu_torch.ops.bin_kernel, colate_tpu_torch.pipeline.binning\n"
         "import colate_tpu_torch.models.mut_em, colate_tpu_torch.fixtures\n"
+        "import colate_tpu_torch.parallel.mesh, colate_tpu_torch.parallel.multihost\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(REPO, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"rc = c.main({_argv(fix, out, '--torch_device', 'cpu', '--em_dtype', 'float32')!r})\n"
@@ -232,6 +233,8 @@ def test_port_never_loads_jax(fix, tmp_path):
         f"rc = c.main({_argv(fix, out + '_dev', '--torch_device', 'cpu', '--binning', 'device')!r})\n"
         "assert rc == 0, rc\n"
         f"rc = c.main({_argv(fix, out + '_par', '--torch_device', 'cpu', '--sampling', 'mc_parity')!r})\n"
+        "assert rc == 0, rc\n"
+        f"rc = c.main({_argv(fix, out + '_mesh', '--torch_device', 'cpu', '--checkpoint', '--devices', '2', '--binning', 'sharded')!r})\n"
         "assert rc == 0, rc\n"
         "from colate_tpu_torch.fixtures import make_anc_mut, write_segment_poplabels\n"
         f"make_anc_mut({trees!r}, '1', N=8, num_trees=12, seed=3)\n"
@@ -254,7 +257,8 @@ def test_port_never_loads_jax(fix, tmp_path):
     assert os.path.exists(out + ".coal")
     assert "binning=torch-twin:float32(cpu)" in r.stderr
     assert "binning=mc_parity(host)" in r.stderr
-    assert os.path.exists(out + "_dev.coal") and os.path.exists(out + "_par.coal")
+    assert all(os.path.exists(out + x + ".coal") for x in ("_dev", "_par", "_mesh"))
+    assert os.path.exists(out + "_mesh.suffstats.npz") and "provider=mesh[2]:torch:float64(cpu) " in r.stderr
     assert "tree_done " in r.stderr and "route=device:cpu,native" in r.stderr
     assert "la_done " in r.stderr and "route=native" in r.stderr
     assert all(os.path.exists(out + x + ".coal") for x in ("_t", "_la"))
@@ -346,18 +350,6 @@ def test_cuda_without_a_card_raises(fix, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(_argv(fix, str(tmp_path / "x"), "--torch_device", "cuda"))
     assert not os.path.exists(str(tmp_path / "x.coal"))
-
-
-@pytest.mark.parametrize("extra", [
-    ("--devices", "2"),
-    ("--checkpoint",),
-    ("--coordinator", "localhost:1234", "--num_processes", "2", "--process_id", "0"),
-], ids=["devices", "checkpoint", "multiprocess"])
-def test_unported_flags_exit_nonzero(fix, tmp_path, capsys, extra):
-    out = str(tmp_path / "x")
-    assert cli.main(_argv(fix, out, "--torch_device", "cpu", *extra)) != 0
-    assert "ROADMAP" in capsys.readouterr().err
-    assert not os.path.exists(out + ".coal")
 
 
 @pytest.mark.parametrize("mode", ["count_topo", "make_tmp", "CondCoalRates"])
