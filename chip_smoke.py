@@ -56,7 +56,23 @@ source, started together) and:
      under ``--binning auto`` and ``device``, rank 0's ``.coal`` against
      phases 5 and 9;
 17.  ``--sampling mc_parity`` and ``--em_dtype float64`` at 8 replicates:
-     the ``.coal`` on the card byte-identical to ``--torch_device cpu``.
+     the ``.coal`` on the card byte-identical to ``--torch_device cpu``;
+18.  (after 17, as are 19-20) mode ``mut`` on BCF2 inputs written from the
+     north-star fixture's rows (a target of one sample and a reference of
+     ten a chromosome): ``--target_bcf/--reference_bcf`` under ``--binning
+     auto`` and ``device``, ``--target_bcf`` alone under ``auto``, each
+     with one EM launch (and one binning launch under ``device``), its
+     histograms within 2e-5 of native float64, its ``.coal`` within 1e-3
+     of the host f64 EM and, under ``auto``, its ``.colate_mat`` equal to
+     the CPU's; a rerun that reads the ``.colate_mat`` cache;
+19.  the same at tools/bench_bam_stream.py's scale (2M reads a BAM on an
+     18 Mb contig, 200k ``.mut`` rows): ``--target_bam/--reference_bcf``
+     under ``auto`` and ``device``, ``--target_bam/--reference_bam`` under
+     ``auto``; ``make_tmp --target_bam`` as a process (1 and 4 inflate
+     threads, the same bytes) and a process that only imports the port,
+     each with its wall and max RSS from wait4;
+20.  ``mc_parity``/f64 bytes on the card equal to the CPU's on a small
+     fixture, ``--target_bcf`` alone and ``--target_bam/--reference_bcf``.
 
 Prints the measured times, one JSON line about the tree estimators'
 device programs (plain torch, not kernels), one JSON line about the
@@ -99,6 +115,7 @@ N_TREES = 60_000
 N_HAP = 200
 TREE_BINS = "2,6,0.25"
 N_SEGMENTS = 1000
+N_BAM_READS = 2_000_000  # tools/bench_bam_stream.py's scale, bench.py:700-702
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3
@@ -898,6 +915,228 @@ def parity_phase(tmp: str, smi: str) -> None:
               f"on the CPU [{smi}]", flush=True)
 
 
+def host_reference(argv: list[str], dev):
+    """The host side of a BCF or BAM leg: its sites joined in-process, the
+    native float64 histograms, and the kernel's histograms of the same
+    sites (compare-only launches, outside any counted run)."""
+    from colate_tpu_torch import cli
+    from colate_tpu_torch.models.mut_em import join_inputs
+    from colate_tpu_torch.pipeline.binning import bin_sites_analytic, bin_sites_analytic_native
+
+    cfg = cli.mut_config(cli.build_parser().parse_args(argv + ["-o", os.devnull]))
+    with contextlib.redirect_stderr(io.StringIO()):
+        sites = join_inputs(cfg)
+    return cfg, sites, dict(native=bin_sites_analytic_native(sites),
+                            device=bin_sites_analytic(sites, 0.0, dev))
+
+
+def bcf_bam_leg(name: str, argv: list[str], binning: str, ref, tmp: str, smi: str) -> dict:
+    """One mode mut run of a BCF or BAM leg through the CLI on the card at
+    B=1024 (the kernels' counts set to 0 just before it, read just after),
+    checked against the host: one EM launch (and one binning launch under
+    --binning device), the histograms within 2e-5 of native float64, the
+    .coal within 1e-3 of the host f64 EM on the run's counts where the
+    rate is above 1e-4, and under auto the .colate_mat byte-identical to
+    what --torch_device cpu writes (its binning and bootstrap are host
+    code)."""
+    import numpy as np
+
+    from colate_tpu_torch.config import COLATE_MAT_NORM, age_bin_centers
+    from colate_tpu_torch.fixtures import hist_rel
+    from colate_tpu_torch.formats.colate_mat import write_colate_mat
+    from colate_tpu_torch.models.mut_em import bootstrap_counts, mut_epochs
+    from colate_tpu_torch.ops.em import run_em_native
+
+    cfg, sites, hists = ref
+    out = os.path.join(tmp, f"{name}_{binning}")
+    r = cli_run(argv + ["--binning", binning], out)
+    ev = r["events"]
+    check(r["provider"] == "cuda-kernel:float32" and r["em"] == 1,
+          f"{name} {binning}: one EM kernel launch ({r['provider']}, {r['em']})")
+    route = ev["mut_suffstats"]["binning"]
+    if binning == "device":
+        check(route == "cuda-kernel:float32" and r["bin"] == 1,
+              f"{name} device: one binning kernel launch ({route}, {r['bin']})")
+    else:
+        check(route == "native" and r["bin"] == 0, f"{name} auto: the native binning ({route})")
+    used = hists[binning if binning == "device" else "native"]
+    rel_hist = hist_rel(list(hists["device"]), list(hists["native"]))
+    check(rel_hist <= 2e-5, f"{name}: the kernel's histograms within 2e-5 of native ({rel_hist:.3e})")
+    stats = (*used, len(sites), sites.num_blocks)
+    check(ev["mut_suffstats"]["sites"] == len(sites) and ev["mut_suffstats"]["blocks"] == sites.num_blocks,
+          f"{name} {binning}: the run's sites and blocks are the host join's")
+    sc, nc = (c / COLATE_MAT_NORM for c in bootstrap_counts(cfg, stats, cfg.seed))
+    epochs, init, _ = mut_epochs(cfg)
+    rates, _, _ = run_em_native(epochs, init, sc, nc)
+    coal = read_coal_rates(out + ".coal")
+    check(coal.shape == rates.shape and bool(np.isfinite(coal).all()), f"{name} {binning}: .coal shape, finite")
+    real = rates > 1e-4
+    rel = float(np.max(np.abs(coal[real] - rates[real]) / rates[real]))
+    check(real.sum() > 100 and rel <= 1e-3, f"{name} {binning}: .coal within 1e-3 of the host f64 EM ({rel:.3e})")
+    same_mat = None
+    if binning == "auto":
+        cpu = os.path.join(tmp, f"{name}_cpu.colate_mat")
+        write_colate_mat(cpu, age_bin_centers(), sc, nc)
+        same_mat = same_bytes(cpu, out + ".colate_mat")
+        check(same_mat, f"{name} auto: .colate_mat byte-identical to the CPU's")
+    st = r["timings"]
+    print(f"mode mut {name} --binning {binning} B={B_E2E}: wall {r['wall']:.4f} s; parse {st['parse']:.4f} s, "
+          f"binning {st['binning']:.4f} s, bootstrap {st['bootstrap']:.4f} s, em {st['em']:.4f} s; "
+          f"{len(sites)} sites in {sites.num_blocks} blocks; binning {route}, EM {r['provider']}; "
+          f"{r['bin']} bin and {r['em']} EM kernel launches; hists vs native {rel_hist:.3e} (<= 2e-5); "
+          f".coal vs host f64 EM {rel:.3e} (<= 1e-3)"
+          + ("; .colate_mat = the CPU's" if same_mat else "") + f" [{smi}]", flush=True)
+    return dict(r, rel=rel, sites=len(sites), blocks=sites.num_blocks, coal=coal)
+
+
+def bcf_phase(fix: dict, base: list[str], dev, tmp: str, smi: str) -> dict:
+    """Phase 18: the BCF legs on the north-star fixture.  A target BCF2 of
+    one sample and a reference of ten (the fixture's 2 and 20 haplotypes)
+    a chromosome; --target_bcf/--reference_bcf under --binning auto and
+    device, --target_bcf alone (the haplotype half-split) under auto, and a
+    rerun that reads the .colate_mat cache."""
+    import numpy as np
+
+    from colate_tpu_torch.fixtures import write_fixture_bcfs
+
+    t0 = time.perf_counter()
+    bcf = write_fixture_bcfs(fix)
+    print(f"BCF2 inputs (4 chromosomes, 1 and 10 samples) written in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    legs = {}
+    for name, inputs, binnings in (
+        ("bcf_bcf", ["--target_bcf", bcf["target_bcf"], "--reference_bcf", bcf["reference_bcf"]],
+         ("auto", "device")),
+        ("bcf_split", ["--target_bcf", bcf["reference_bcf"]], ("auto",)),
+    ):
+        argv = base + inputs
+        ref = host_reference(argv, dev)
+        for binning in binnings:
+            legs[f"{name}_{binning}"] = bcf_bam_leg(name, argv, binning, ref, tmp, smi)
+    # the .colate_mat cache: a rerun with the cold run's -o skips the parse
+    argv = base + ["--target_bcf", bcf["target_bcf"], "--reference_bcf", bcf["reference_bcf"]]
+    cold = os.path.join(tmp, "bcf_bcf_auto")
+    warm = cli_run(argv + ["--binning", "auto"], cold)
+    check(warm["events"]["mut_suffstats"]["binning"] == "colate_mat", "the rerun read the .colate_mat")
+    check(warm["em"] == 1 and warm["timings"]["parse"] == 0.0, "the rerun: no parse, one EM launch")
+    a, b = read_coal_rates(cold + ".coal"), legs["bcf_bcf_auto"]["coal"]
+    real = b > 1e-4
+    rel = float(np.max(np.abs(a[real] - b[real]) / b[real]))
+    check(rel <= 1e-4, f"the cached rerun's rates within 1e-4 of the cold run's ({rel:.3e})")
+    print(f"mode mut bcf_bcf rerun from .colate_mat: wall {warm['wall']:.4f} s, em {warm['timings']['em']:.4f} s, "
+          f"binning=colate_mat; identified rates within {rel:.3e} of the cold run's, "
+          f"{int((a != b).sum())} of {a.size} printed rates differ (the cache holds 6-digit counts) [{smi}]",
+          flush=True)
+    legs["bcf_bcf_cached"] = warm
+    return legs
+
+
+def bam_phase(base: list[str], dev, tmp: str, smi: str) -> dict:
+    """Phase 19: the BAM legs at tools/bench_bam_stream.py's scale (one
+    18 Mb contig, 200k .mut rows, 2M reads a BAM): --target_bam with
+    --reference_bcf under --binning auto and device, with --reference_bam
+    under auto, and make_tmp --target_bam as a process timed with wait4."""
+    import numpy as np
+
+    from colate_tpu_torch.fixtures import make_bam_fixture
+    from colate_tpu_torch.formats.colate_in import read_colate_in
+
+    t0 = time.perf_counter()
+    bam = make_bam_fixture(os.path.join(tmp, "bam"), N_BAM_READS)
+    print(f"BAM inputs: {bam['length']} bp contig, 2 x {bam['n_reads']} reads "
+          f"({os.path.getsize(bam['target_bam'])} bytes a BAM), written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    genome = ["--mut", bam["mut_prefix"], "--chr", bam["chrfile"], "--ref_genome", bam["ref_genome"]]
+    base = base + genome
+    legs = {}
+    for name, inputs, binnings in (
+        ("bam_bcf", ["--target_bam", bam["target_prefix"], "--reference_bcf", bam["reference_bcf"]],
+         ("auto", "device")),
+        ("bam_bam", ["--target_bam", bam["target_bam"], "--reference_bam", bam["reference_bam"]],
+         ("auto",)),
+    ):
+        argv = base + inputs
+        ref = host_reference(argv, dev)
+        for binning in binnings:
+            legs[f"{name}_{binning}"] = bcf_bam_leg(name, argv, binning, ref, tmp, smi)
+    def timed(cmd, threads=None):
+        """Wall and maximum resident set of one process, timed from a small
+        launcher: a child forked from this process would report this
+        process's resident set as its own maximum."""
+        env = dict(os.environ)
+        if threads:
+            env["COLATE_BGZF_THREADS"] = str(threads)
+        p = subprocess.run([sys.executable, "-c", WAIT4, *cmd], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"the launcher exits 0: {p.stderr[-2000:]}")
+        run = json.loads(p.stdout)
+        check(run["rc"] == 0, f"{' '.join(cmd[2:5])} exits 0: {run['err']}")
+        return run
+
+    dec_mb = bam["n_reads"] * (4 + 32 + 2 + 4 + 30 + 60) / 1e6
+    floor = timed([sys.executable, "-c", "import colate_tpu_torch"])
+    print(f"a process that imports colate_tpu_torch (and torch) and exits: wall {floor['wall']:.4f} s, "
+          f"max RSS {floor['max_rss_mb']:.1f} MB (wait4) [{smi}]", flush=True)
+    # the native inflate's default of one worker thread (native/hts.cpp),
+    # then four on this host's cores
+    made_runs = {}
+    for threads in (None, 4):
+        out = os.path.join(tmp, f"bam_made_{threads or 1}")
+        run = timed([sys.executable, "-m", "colate_tpu_torch", "--mode", "make_tmp", "--target_bam",
+                     bam["target_bam"], *genome, "-o", out], threads)
+        wall, max_rss_mb = run["wall"], run["max_rss_mb"]
+        made_runs[threads or 1] = dict(wall=wall, max_rss_mb=max_rss_mb)
+        made = read_colate_in(out + ".colate.in")
+        check(len(made) > 1000 and bool(np.all(np.diff(made.bp) > 0))
+              and bool(np.all(made.aaf + made.daf > 0)), "make_tmp wrote sorted sites with reads")
+        print(f"make_tmp --target_bam, {bam['n_reads']} reads ({dec_mb:.0f} MB decompressed): wall "
+              f"{wall:.4f} s ({dec_mb / wall:.1f} MB/s), max RSS {max_rss_mb:.1f} MB (wait4), "
+              f"{len(made)} sites; COLATE_BGZF_THREADS {threads or 'unset (1)'}, {os.cpu_count()} "
+              f"host cores [{smi}]", flush=True)
+    check(same_bytes(os.path.join(tmp, "bam_made_1.colate.in"),
+                     os.path.join(tmp, "bam_made_4.colate.in")),
+          "make_tmp writes the same bytes with 1 and 4 inflate threads")
+    legs["make_tmp"] = dict(made_runs, import_only=floor)
+    return legs
+
+
+# runs the command in its arguments and prints its wall and its own maximum
+# resident set (os.wait4, as tools/bench_bam_stream.py measures)
+WAIT4 = """
+import json, os, subprocess, sys, time
+t0 = time.perf_counter()
+p = subprocess.Popen(sys.argv[1:], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+err = p.stderr.read().decode()
+_, status, ru = os.wait4(p.pid, 0)
+print(json.dumps(dict(wall=time.perf_counter() - t0, max_rss_mb=ru.ru_maxrss / 1000.0,
+                      rc=os.waitstatus_to_exitcode(status), err=err[-2000:])))
+"""
+
+
+def bcf_bam_parity_phase(tmp: str, smi: str) -> None:
+    """Phase 20: --sampling mc_parity --em_dtype float64 at 8 replicates on
+    a small fixture (tests/test_mut_bam.py's scale), --target_bcf alone
+    and --target_bam/--reference_bcf: the .coal on the card byte-identical
+    to --torch_device cpu."""
+    from colate_tpu_torch.fixtures import make_bcf_bam_fixture
+
+    bb = make_bcf_bam_fixture(os.path.join(tmp, "bb"))
+    for kind in ("bcf_split", "bam_bcf"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            runs[device] = cli_run(
+                ["--mode", "mut", "--mut", bb["mut_prefix"], "--chr", bb["chrfile"], "--bins", BINS,
+                 "--seed", "43", "--num_bootstraps", "8", "--sampling", "mc_parity", "--em_dtype",
+                 "float64", *bb["inputs"][kind], "--torch_device", device],
+                os.path.join(tmp, f"bbpar_{kind}_{device}"))
+        check(runs["cuda"]["provider"] == "torch:float64(cuda)", f"{kind} parity: the f64 EM on the card")
+        check(same_bytes(*(os.path.join(tmp, f"bbpar_{kind}_{d}.coal") for d in ("cuda", "cpu"))),
+              f"{kind} mc_parity/float64: the .coal on the card is the CPU's bytes")
+        print(f"{kind} --sampling mc_parity --em_dtype float64 B=8: .coal bytes on the card equal "
+              f"--torch_device cpu; em {runs['cuda']['timings']['em']:.4f} s on the card, "
+              f"{runs['cpu']['timings']['em']:.4f} s on the CPU [{smi}]", flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -919,7 +1158,7 @@ def main(argv: list[str] | None = None) -> int:
         bench_sites, beyond_table_sites, hist_rel, make_fixture, synthetic_sites,
     )
     from colate_tpu_torch.models.mut_em import (
-        bootstrap_counts, join_tmp_inputs, mut_epochs, suffstats,
+        bootstrap_counts, join_inputs, mut_epochs, suffstats,
     )
     from colate_tpu_torch.ops import bin_kernel, em_kernel
     from colate_tpu_torch.ops.em import run_em, run_em_native
@@ -933,13 +1172,20 @@ def main(argv: list[str] | None = None) -> int:
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"card: {card}", flush=True)
 
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as ex:  # the kernels and the native host library together
-        host = ex.submit(native.load)
+        host = ex.submit(timed, native.load)
         builds = [ex.submit(m.kernel_library) for m in (em_kernel, bin_kernel)]
         builds = [f.result() for f in builds]
-        host.result()
-    print(f"kernels and the native host library built in {time.perf_counter() - t0:.3f} s",
+        host_s = host.result()
+    print(f"kernels and the native host library built in {time.perf_counter() - t0:.3f} s; "
+          f"the native library ({', '.join(native.SOURCES)}) loaded in {host_s:.3f} s, its g++ "
+          f"build included when {os.path.basename(native.library_path())} was not built yet",
           flush=True)
     for built in builds:
         print(f"{os.path.basename(built.path)}: nvcc {built.seconds:.3f} s")
@@ -1159,7 +1405,7 @@ def main(argv: list[str] | None = None) -> int:
             "empty": (synthetic_sites(n=0, nb=0), 0.0),
             "3 sites": (synthetic_sites(n=3, nb=1, seed=5), 0.0),
             "ages beyond the table": (beyond_table_sites(), 0.0),
-            "north-star fixture (the main path's sites)": (join_tmp_inputs(cfg), 0.0),
+            "north-star fixture (the main path's sites)": (join_inputs(cfg), 0.0),
         }
         for name, (sites, age) in cases.items():
             stream = bin_kernel.site_stream(sites, age).to(dev)
@@ -1314,6 +1560,15 @@ def main(argv: list[str] | None = None) -> int:
         ranks_phase(argv, tmp, smi)
         parity_phase(tmp, smi)
 
+        # ---- 18-20. mode mut on BCF and BAM inputs, parity on them ----
+        base = ["--mode", "mut", "--bins", BINS, "--seed", "1", "--num_bootstraps", str(B_E2E),
+                "--torch_device", "cuda"]
+        legs = bcf_phase(fix, base + ["--mut", fix["mut_prefix"], "--chr", fix["chrfile"]], dev,
+                         tmp, smi)
+        legs.update(bam_phase(base, dev, tmp, smi))
+        bcf_bam_parity_phase(tmp, smi)
+        bcf_bam = {k: v for k, v in legs.items() if "em" in v}
+
         # ---- 10-13. the tree estimators ----
         programs, anc, mut, coords = tree_layers(dev, smi)
         tree_cli_phases(tmp, anc, mut, coords, smi)
@@ -1334,6 +1589,7 @@ def main(argv: list[str] | None = None) -> int:
             "checkpoint_chunk128": ckpt["chunk128_launches"],
             "devices1": shards["devices"][1]["em"],
             "dryrun_4_shards_one_card": shards["dryrun"]["em_launches"],
+            **{f"mut_{k}": v["em"] for k, v in bcf_bam.items()},
         },
         "max_abs_err": max(max_abs, run_abs),
         "ms": em_ms,
@@ -1351,6 +1607,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_by_path": {
             "devices1_sharded": shards["devices"][1]["bin"],
             "dryrun_4_shards_one_card": shards["dryrun"]["bin_launches"],
+            **{f"mut_{k}": v["bin"] for k, v in bcf_bam.items()},
         },
         "max_abs_err": bin_abs,
         "ms": bin_ms,

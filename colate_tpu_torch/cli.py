@@ -2,24 +2,32 @@
 
 The flag surface is colate_tpu's (``_build_parser``, ``_read_chr_list``
 and ``_print_rusage`` are copied from colate_tpu/cli.py) plus
-``--torch_device {cuda,cpu}``.  Mode ``mut`` on ``.colate.in`` inputs and
-the tree estimators (modes ``tree``/``coal`` and ``local_ancestry``) are
-ported; the modes, inputs and flags that are not yet exit 2 with an
-error block naming the ROADMAP item that ports them.  ``--torch_device
-cuda`` on a machine without a card raises: the port never drops to the
-CPU by itself.  Under ``cuda`` the tree estimators run their device
-programs on the card; under ``cpu`` the reference's host routes (the
-native walks; the torch program on the CPU for ancient leaves in mode
-tree).
+``--torch_device {cuda,cpu}``.  Ported:
 
-``--binning device`` and ``--binning sharded`` bin ``.colate.in`` inputs
-on ``--torch_device``.  Without ``--devices`` ``sharded`` is one shard:
-the block-aligned kernel over the whole stream, which is what ``device``
-runs, so the two write the same histograms.  ``--devices N`` splits the
-bootstrap EM (and the binning under ``sharded``) over the first N cards;
-``--checkpoint`` caches the histograms and the EM's loop state;
-``--coordinator/--num_processes/--process_id`` run one process per rank
-with ``torch.distributed`` (parallel/multihost.py).
+- mode ``mut`` on every input of the reference: ``--target_bcf`` with or
+  without ``--reference_bcf``, ``--target_bam`` with ``--reference_bcf``
+  (``--per_chr_bam``) or ``--reference_bam`` (BAM or CRAM), and
+  ``--target_tmp/--reference_tmp``;
+- the host modes ``make_tmp``, ``preprocess_mut``, ``calc_depth`` and
+  ``get_deam``, which do no device work;
+- the tree estimators, modes ``tree``/``coal`` and ``local_ancestry``.
+
+The modes that are not yet (``NOT_PORTED``) exit 2 with an error block
+naming the ROADMAP item that ports them.  ``--torch_device cuda`` on a
+machine without a card raises in mode ``mut`` and the tree estimators:
+the port never drops to the CPU by itself.  Under ``cuda`` the tree
+estimators run their device programs on the card; under ``cpu`` the
+reference's host routes (the native walks; the torch program on the CPU
+for ancient leaves in mode tree).
+
+``--binning device`` and ``--binning sharded`` bin the sites of mode
+``mut`` on ``--torch_device``.  Without ``--devices`` ``sharded`` is one
+shard: the block-aligned kernel over the whole stream, which is what
+``device`` runs, so the two write the same histograms.  ``--devices N``
+splits the bootstrap EM (and the binning under ``sharded``) over the
+first N cards; ``--checkpoint`` caches the histograms and the EM's loop
+state; ``--coordinator/--num_processes/--process_id`` run one process per
+rank with ``torch.distributed`` (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -187,22 +195,53 @@ def main(argv: list[str] | None = None) -> int:
         _print_rusage()
 
 
+# the modes that are not ported yet, and the ROADMAP item that ports them
+NOT_PORTED = {
+    "print_tmp": "item 6, the host modes",
+    "compare_tmp": "item 6, the host modes",
+    "count_topo": "item 6, the host modes",
+    "CondCoalRates": "item 6, the host modes",
+}
+
+
 def _dispatch(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode not in ("mut", "tree", "coal", "local_ancestry"):
-        return _not_ported(f"mode {args.mode}", "the remaining modes")
-    if args.mode != "mut":
+    mode = args.mode
+    if mode in NOT_PORTED:
+        return _not_ported(f"mode {mode}", NOT_PORTED[mode])
+    if mode == "mut":
+        return _run_mut(args)
+    # the host modes: converters and BAM statistics, no device work
+    if mode == "make_tmp":
+        from colate_tpu_torch.models.make_tmp import run_make_tmp
+
+        return run_make_tmp(args)
+    if mode == "preprocess_mut":
+        from colate_tpu_torch.models.preprocess_mut import run_preprocess_mut
+
+        return run_preprocess_mut(args)
+    if mode == "calc_depth":
+        from colate_tpu_torch.models.bam_stats import run_calc_depth
+
+        return run_calc_depth(args)
+    if mode == "get_deam":
+        from colate_tpu_torch.models.bam_stats import run_get_deam
+
+        return run_get_deam(args)
+    if mode in ("tree", "coal", "local_ancestry"):
         _require_card(args)
-        if args.mode == "local_ancestry":
+        if mode == "local_ancestry":
             from colate_tpu_torch.models.local_ancestry import run_local_ancestry
 
             return run_local_ancestry(args)
         from colate_tpu_torch.models.tree_coal import run_tree_mode
 
         return run_tree_mode(args)
-    if args.target_bcf or args.reference_bcf or args.target_bam or args.reference_bam:
-        return _not_ported("mode mut on --target_bcf/--reference_bcf/--target_bam/"
-                           "--reference_bam", "BCF/BAM inputs")
+    print(f"####### error #######\nInvalid or missing mode: {mode}", file=sys.stderr)
+    return 2
+
+
+def _run_mut(args) -> int:
     _require_card(args)
     if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
         # one process per rank runs this same command; rank 0 writes the .coal

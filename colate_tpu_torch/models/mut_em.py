@@ -2,17 +2,23 @@
 device, EM on the device.
 
 Port of colate_tpu/models/mut_em.py (``MutResult``, ``resolve_tmp_inputs``,
-the ``.colate.in`` branch of ``compute_suffstats``, ``run_mut`` with its
-suffstats cache, ``finish_from_suffstats`` with its ``--devices`` and EM
+``compute_suffstats`` with the reference's dispatch over BCF, BAM/CRAM and
+``.colate.in`` inputs, ``run_mut`` with its ``.colate_mat`` and suffstats
+caches, ``finish_from_suffstats`` with its ``--devices`` and EM
 checkpoint branches, ``run_mut_and_write``).  The host stages are the
 port's own copies of the JAX package's: the native C++ prefilter, join
-and binning, the parsers, the numpy bootstrap, the epoch grid and the
-``.coal`` writer.  The binning is one of:
+and binning, the BCF decoder and BAM pileup, the joins of
+pipeline/join_vcf.py and join_bam.py, the numpy bootstrap, the epoch grid
+and the ``.coal`` writer.  Runs on BCF and BAM inputs write the bootstrap
+counts to ``<output>.colate_mat``, which a rerun with the same output
+reads instead of parsing.  The binning is one of:
 
 - ``native``: the host C++ inside :func:`compute_suffstats` (``--binning
-  auto|native``);
+  auto|native``), fused with the parse of ``.colate.in`` inputs under
+  ``auto``;
 - ``mc_parity(host)``: the reference's draw replay (``--sampling
-  mc_parity``, whatever ``--binning`` says);
+  mc_parity``, whatever ``--binning`` says), during the join for a single
+  BCF;
 - ``cuda-kernel:float32``: ``--binning device|sharded`` on a card, the
   CUDA kernel of ops/bin_kernel.py (``sharded``: over the ``--devices``
   cards, parallel/mesh.py, or the run's one device);
@@ -53,6 +59,7 @@ from colate_tpu_torch.config import (
     COLATE_MAT_NORM,
     EM_HOST_MAX_B,
     INITIAL_COAL_RATE,
+    NUM_AGE_BINS,
     MutRunConfig,
     age_bin_centers,
 )
@@ -67,11 +74,14 @@ from colate_tpu_torch.ops.em import run_em, run_em_checkpointed, run_em_native
 from colate_tpu_torch.ops.em_kernel import run_em_kernel
 from colate_tpu_torch.ops.epochs import epochs_from_bins, epochs_from_coal_file
 from colate_tpu_torch.pipeline.binning import (
+    GrowableBlockHists,
     bin_sites_analytic,
     bin_sites_analytic_native,
     bin_sites_mc_parity,
 )
 from colate_tpu_torch.pipeline.join import fused_tmptmp_stream, join_tmptmp, mut_prefilter_native
+from colate_tpu_torch.pipeline.join_bam import join_bamvcf, join_onebambam, join_onebamvcf
+from colate_tpu_torch.pipeline.join_vcf import join_vcf_split, join_vcfvcf
 from colate_tpu_torch.utils.checkpoint import input_fingerprint, load_suffstats, save_suffstats
 from colate_tpu_torch.utils.progress import log_event
 
@@ -115,6 +125,27 @@ def resolve_tmp_inputs(cfg: MutRunConfig):
     return chroms, mut_files, tmask, rmask
 
 
+def input_kind(cfg: MutRunConfig) -> str:
+    """Which of the reference's parsers cfg's inputs take, in its dispatch
+    order (coal.cpp:3175-3317): ``bcf_bcf`` (parse_vcfvcf), ``bcf_split``
+    (parse_vcf, one BCF split into halves), ``bam_bcf`` (parse_onebamvcf,
+    or parse_bamvcf under --per_chr_bam), ``bam_bam`` (parse_onebambam) or
+    ``tmp`` (parse_tmptmp)."""
+    if cfg.target_bcf:
+        return "bcf_bcf" if cfg.reference_bcf else "bcf_split"
+    if cfg.target_bam and cfg.reference_bcf:
+        return "bam_bcf"
+    if cfg.target_bam and cfg.reference_bam:
+        return "bam_bam"
+    if cfg.target_tmp and cfg.reference_tmp:
+        return "tmp"
+    raise ValueError(
+        "mode mut needs target_bcf [+reference_bcf], "
+        "target_bam+reference_bcf, target_bam+reference_bam, or "
+        "target_tmp+reference_tmp"
+    )
+
+
 def compute_suffstats(
     cfg: MutRunConfig,
     chroms,
@@ -129,33 +160,28 @@ def compute_suffstats(
     timings: dict,
     device: str | torch.device = "cuda",
 ):
-    """Parse + bin stage of mode mut on ``.colate.in`` inputs: the per-block
-    sufficient statistics ``(sh_b, ns_b, se_b, ne_b, num_sites,
-    num_blocks)`` (colate_tpu/models/mut_em.py:205-294).
+    """Parse + bin stage of mode mut: the per-block sufficient statistics
+    ``(sh_b, ns_b, se_b, ne_b, num_sites, num_blocks)`` of cfg's inputs
+    over the given chromosomes (colate_tpu/models/mut_em.py:83-294).
 
-    - ``--binning auto`` (unique chromosome names, no parity): the fused
-      native ``.mut`` prefilter, join and analytic binning, streamed
-      from the two files;
-    - otherwise the staged decode and join, then the draw replay
+    - ``.colate.in`` inputs under ``--binning auto`` (unique chromosome
+      names, no parity): the fused native ``.mut`` prefilter, join and
+      analytic binning, streamed from the two files;
+    - the single BCF under ``--sampling mc_parity``: binned site by site
+      during its join, which draws its haplotype split from the same
+      stream (join_vcf.py:join_vcf_split);
+    - otherwise the join of :func:`join_sites`, then the draw replay
       (``mc_parity``), the port's device binning on ``device``
       (``--binning device``; ``sharded`` over the ``--devices`` first
       devices of ``device``'s type, or on ``device``) or the native
       binning (``auto``, ``native``).
     """
     t0 = time.time()
-    if not (cfg.target_tmp and cfg.reference_tmp):
-        raise ValueError(
-            "mode mut needs target_bcf [+reference_bcf], "
-            "target_bam+reference_bcf, target_bam+reference_bam, or "
-            "target_tmp+reference_tmp"
-        )
-    dedup = len(set(chroms)) == len(chroms)
-    tmasks = [read_mask(f) for f in tmask_files] if tmask_files else None
-    rmasks = [read_mask(f) for f in rmask_files] if rmask_files else None
-    if not parity and dedup and cfg.binning == "auto":
+    kind = input_kind(cfg)
+    if kind == "tmp" and not parity and len(set(chroms)) == len(chroms) and cfg.binning == "auto":
         # streaming fused pipeline: peak memory is one chromosome's
         # columns, not the whole genome (coal.cpp:2125-2145 streams too)
-        pf = mut_prefilter_native(mut_files, tmasks, rmasks, age)
+        pf = mut_prefilter_native(mut_files, _masks(tmask_files), _masks(rmask_files), age)
         (sh_b, ns_b, se_b, ne_b), num_sites, num_blocks = fused_tmptmp_stream(
             pf, chroms, cfg.target_tmp, cfg.reference_tmp, age, ref_age
         )
@@ -163,12 +189,18 @@ def compute_suffstats(
         timings["binning"] = 0.0
         return sh_b, ns_b, se_b, ne_b, num_sites, num_blocks
 
-    sites = _join_staged(cfg, chroms, mut_files, tmasks, rmasks, age, ref_age)
+    # the split BCF under parity: binned during the join, its histograms
+    # growing with the genome (no fixed block cap)
+    mc_hists = GrowableBlockHists(NUM_AGE_BINS) if kind == "bcf_split" and parity else None
+    sites = join_sites(cfg, chroms, mut_files, tmask_files, rmask_files, age, ref_age,
+                       rng if parity else MT19937(seed), mc_hists)
     timings["parse"] = time.time() - t0
 
     t0 = time.time()
     # every parser forces age=0 (e.g. coal.cpp:597-598, 2073-2074)
-    if parity:
+    if mc_hists is not None:
+        hists = tuple(h[:sites.num_blocks] for h in mc_hists)
+    elif parity:
         hists = bin_sites_mc_parity(sites, rng, age=0.0)
     elif cfg.binning == "sharded":
         from colate_tpu_torch.parallel.mesh import make_mesh, sharded_bin_sites
@@ -182,6 +214,63 @@ def compute_suffstats(
         hists = bin_sites_analytic_native(sites, age=0.0)
     timings["binning"] = time.time() - t0
     return (*hists, len(sites), sites.num_blocks)
+
+
+def _masks(files):
+    return [read_mask(f) for f in files] if files else None
+
+
+def join_sites(cfg: MutRunConfig, chroms, mut_files, tmask_files, rmask_files,
+               age: float, ref_age: float, split_rng, mc_hists=None):
+    """The accepted sites (a ``JoinedSites``) of cfg's inputs over the given
+    chromosomes, by the parser :func:`input_kind` names; ``split_rng``
+    draws the single BCF's haplotype split, and bins its sites into
+    ``mc_hists`` as it goes when that is given (colate_tpu/models/
+    mut_em.py:117-248)."""
+    def per_chr(prefix, ext):
+        if prefix is None:
+            return None
+        if cfg.chr_list:
+            return [f"{prefix}_chr{c}{ext}" for c in chroms]
+        return [prefix]
+
+    kind = input_kind(cfg)
+    if kind == "bcf_bcf":
+        return join_vcfvcf(
+            chroms, mut_files, per_chr(cfg.target_bcf, ".bcf"),
+            per_chr(cfg.reference_bcf, ".bcf"), tmask_files, rmask_files,
+            per_chr(cfg.ref_genome, ".fa"), age, ref_age,
+        )
+    if kind == "bcf_split":
+        return join_vcf_split(
+            chroms, mut_files, per_chr(cfg.target_bcf, ".bcf"), tmask_files,
+            per_chr(cfg.ref_genome, ".fa"), split_rng, age, ref_age, mc_hists=mc_hists,
+        )
+    if kind in ("bam_bcf", "bam_bam") and not cfg.ref_genome:
+        raise ValueError("mut with --target_bam requires --ref_genome")
+    bam = dict(params=cfg.filters, age=age, ref_age=ref_age)
+    if kind == "bam_bcf" and cfg.per_chr_bam:
+        # the reference's parse_bamvcf layout (one BAM per chr,
+        # coal.cpp:1229-1510) — dead code behind its CLI (coal.cpp:3273)
+        return join_bamvcf(
+            chroms, mut_files, per_chr(cfg.target_bam, ".bam"),
+            per_chr(cfg.reference_bcf, ".bcf"), tmask_files, rmask_files,
+            per_chr(cfg.ref_genome, ".fa"), **bam,
+        )
+    if kind == "bam_bcf":
+        return join_onebamvcf(
+            chroms, mut_files, cfg.target_bam + ".bam",  # coal.cpp:3228
+            per_chr(cfg.reference_bcf, ".bcf"), tmask_files, rmask_files,
+            per_chr(cfg.ref_genome, ".fa"), **bam,
+        )
+    if kind == "bam_bam":
+        return join_onebambam(
+            chroms, mut_files, cfg.target_bam,  # used as-is (coal.cpp:3262)
+            cfg.reference_bam, tmask_files, rmask_files,
+            per_chr(cfg.ref_genome, ".fa"), **bam,
+        )
+    return _join_staged(cfg, chroms, mut_files, _masks(tmask_files), _masks(rmask_files), age,
+                        ref_age)
 
 
 def _ages(cfg: MutRunConfig):
@@ -263,14 +352,13 @@ def suffstats(cfg: MutRunConfig, seed: int, rng=None, timings: dict | None = Non
     )
 
 
-def join_tmp_inputs(cfg: MutRunConfig):
-    """The accepted sites (a ``JoinedSites``) of cfg's ``.colate.in``
-    inputs: the staged decode and join of :func:`compute_suffstats`."""
+def join_inputs(cfg: MutRunConfig):
+    """The accepted sites (a ``JoinedSites``) of cfg's inputs: the join of
+    :func:`compute_suffstats` outside ``--sampling mc_parity`` (the single
+    BCF's split drawn from ``MT19937(cfg.seed)``)."""
     age, ref_age = _ages(cfg)
-    chroms, mut_files, tmask_files, rmask_files = resolve_tmp_inputs(cfg)
-    tmasks = [read_mask(f) for f in tmask_files] if tmask_files else None
-    rmasks = [read_mask(f) for f in rmask_files] if rmask_files else None
-    return _join_staged(cfg, chroms, mut_files, tmasks, rmasks, age, ref_age)
+    return join_sites(cfg, *resolve_tmp_inputs(cfg), age, ref_age,
+                      MT19937(cfg.seed if cfg.seed is not None else 0))
 
 
 def _join_staged(cfg: MutRunConfig, chroms, mut_files, tmasks, rmasks, age, ref_age):
@@ -329,10 +417,13 @@ def finish_from_suffstats(
     rng=None,
     seed: int | None = None,
     counts=None,
+    write_outputs: bool = True,
 ) -> MutResult:
     """Bootstrap + EM from the per-block sufficient statistics of
     :func:`suffstats`, or from the count matrices of a ``.colate_mat``
-    cache (``counts``, with ``stats`` None)."""
+    cache (``counts``, with ``stats`` None).  Ranks of a multi-process run
+    other than 0 pass ``write_outputs=False``, so the ``.colate_mat`` is
+    written once."""
     age, _ = _ages(cfg)
     parity = cfg.sampling == "mc_parity"
     B = cfg.num_bootstrap
@@ -348,10 +439,11 @@ def finish_from_suffstats(
         if cfg.target_tmp is None or cfg.reference_tmp is None:
             shared_counts = shared_counts / COLATE_MAT_NORM
             notshared_counts = notshared_counts / COLATE_MAT_NORM
-            write_colate_mat(
-                cfg.output + ".colate_mat", age_bin_centers(),
-                shared_counts, notshared_counts,
-            )
+            if write_outputs:
+                write_colate_mat(
+                    cfg.output + ".colate_mat", age_bin_centers(),
+                    shared_counts, notshared_counts,
+                )
         timings["bootstrap"] = time.time() - t0
 
     epochs, init_rates, ep_null = mut_epochs(cfg)

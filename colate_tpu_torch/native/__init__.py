@@ -1,10 +1,13 @@
 """The native host library (C++, bound with ctypes): the columnar
 ``.mut``, ``.colate.in`` and ``.anc`` decoders, the fused prefilter, join
-and analytic binning of mode ``mut``, the host f64 EM, and the host walks
-of modes ``tree`` and ``local_ancestry`` (node ages, children, the sorted
-populate, the local-ancestry accumulation).
+and analytic binning of mode ``mut``, the host f64 EM, the host walks of
+modes ``tree`` and ``local_ancestry`` (node ages, children, the sorted
+populate, the local-ancestry accumulation), and the BCF2 decoder and the
+streaming BAM/CRAM pileup of ``hts.cpp``.
 
-The sources are the JAX package's ``native/`` C++, copied whole.  The
+The sources are the JAX package's ``native/`` C++, copied whole.  Only the
+sources that something binds are built: ``cond.cpp`` (the CondCoalRates
+walks) is left out of the build until its mode is ported.  The
 library is built with ``g++`` at first use into ``colate_tpu_torch/_build/``
 under a name keyed by a hash of the sources and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  The build writes a
@@ -26,7 +29,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
-SOURCES = ("io.cpp", "em.cpp", "hts.cpp", "cond.cpp", "la.cpp")
+SOURCES = ("io.cpp", "em.cpp", "hts.cpp", "la.cpp")
 HEADERS = ("cram.hpp",)
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 LIBS = ("-lz", "-lpthread")
@@ -187,6 +190,26 @@ def _declare(lib) -> None:
         + [L, ctypes.c_int32]         # blocks, threads
         + [P, P]                      # out num, den
     )
+    lib.cn_bam_open.restype = P
+    lib.cn_bam_open.argtypes = [ctypes.c_char_p, I, I, I, I, ctypes.c_char_p, I]
+    lib.cn_bam_contig.restype = I
+    lib.cn_bam_contig.argtypes = (
+        [P, ctypes.c_char_p]
+        + [P, L, P, L]                # ref, anc genomes
+        + [P, L]                      # queries
+        + [P, P, P, P]                # claimed, counts, coverage x2
+        + [ctypes.c_char_p, I]        # errbuf
+    )
+    lib.cn_bam_close.argtypes = [P]
+    lib.cn_bcf_read.restype = P
+    lib.cn_bcf_read.argtypes = [ctypes.c_char_p, ctypes.c_char_p, I]
+    lib.cn_bcf_n.restype = L
+    lib.cn_bcf_n.argtypes = [P]
+    lib.cn_bcf_meta.restype = L
+    lib.cn_bcf_meta.argtypes = [P, I]
+    lib.cn_bcf_col.restype = P
+    lib.cn_bcf_col.argtypes = col
+    lib.cn_bcf_free.argtypes = [P]
 
 
 def col_array(lib, getter, handle, col, dtype):

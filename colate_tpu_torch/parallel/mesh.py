@@ -212,7 +212,7 @@ def _dryrun_mut_e2e(devices, backend: str, B: int) -> int:
     from colate_tpu_torch.fixtures import make_fixture
     from colate_tpu_torch.formats.coal import write_mut_coal
     from colate_tpu_torch.models.mut_em import (
-        bootstrap_counts, join_tmp_inputs, mut_epochs, run_mut_and_write,
+        bootstrap_counts, join_inputs, mut_epochs, run_mut_and_write,
     )
 
     with tempfile.TemporaryDirectory(prefix="colate_dryrun_") as tmp:
@@ -227,7 +227,7 @@ def _dryrun_mut_e2e(devices, backend: str, B: int) -> int:
         want = f"mesh[1]:{'cuda-kernel:float32' if backend == 'kernel' else 'torch:float64(cpu)'}"
         _require(res.em_provider == want, f"the single leg's EM is {res.em_provider}, not {want}")
 
-        sites = join_tmp_inputs(cfg)
+        sites = join_inputs(cfg)
         stats = (*sharded_bin_sites(devices, sites), len(sites), sites.num_blocks)
         sc, nc = bootstrap_counts(cfg, stats, cfg.seed)
         epochs, init, ep_null = mut_epochs(cfg)

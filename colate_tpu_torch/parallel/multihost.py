@@ -14,7 +14,7 @@ Port of colate_tpu/parallel/multihost.py:
   cell is 0 + ... + x + ... + 0: the merged histograms are bitwise the
   single-process ones, and the seeded bootstrap and the EM that follow on
   every rank write the single-process ``.coal`` byte for byte.  Rank 0
-  writes it.
+  writes it, and for BCF and BAM inputs the ``.colate_mat``.
 
 The merge runs over **gloo** on every machine: the merged tensors are
 host histograms of a few hundred kB (4 x [125, 185] float64 at whole-genome
@@ -186,6 +186,7 @@ def run_mut_multihost(cfg: MutRunConfig, device: str | torch.device = "cuda"):
     # time+pid and the ranks' bootstrap weights would differ.
     res = mut_em.finish_from_suffstats(
         cfg, (*merged, num_sites, total_blocks), timings, device, seed=seed,
+        write_outputs=pid == 0,
     )
     if pid == 0:
         write_mut_coal(

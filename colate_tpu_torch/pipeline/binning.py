@@ -12,7 +12,9 @@ colate_tpu/pipeline/binning.py:
   are not carried over.
 - :func:`bin_sites_analytic_native`: the host C++ binning in float64.
 - :func:`bin_sites_mc_parity`: the bit-exact replay of the reference's
-  100-draw Monte Carlo binning (libstdc++ mt19937, see hostrng.py).
+  100-draw Monte Carlo binning (libstdc++ mt19937, see hostrng.py);
+  :class:`GrowableBlockHists` holds the histograms that the single-BCF
+  join fills site by site under that replay (pipeline/join_vcf.py).
 
 Semantics shared by all (coal.cpp:2244-2298):
 - sites with age_begin <= age (==0 for tmp inputs) route their *shared*
@@ -88,6 +90,34 @@ def bin_sites_analytic_native(sites: JoinedSites, age: float = 0.0):
         float(age), AGE_BIN_C, *[p(o) for o in outs]
     )
     return tuple(o[:nb] for o in outs)
+
+
+class GrowableBlockHists:
+    """Four [blocks, nbins] block-histogram accumulators that grow on
+    demand — no fixed block cap (a 30 Mb-block genome of any size fits).
+
+    Iterating yields the four current arrays (shared, notshared,
+    shared_emp, notshared_emp), so callers that unpack a 4-tuple work
+    unchanged; callers that know the upcoming block range call
+    :meth:`ensure` first."""
+
+    def __init__(self, nbins: int = NUM_AGE_BINS, initial_blocks: int = 512):
+        self.arrays = [
+            np.zeros((initial_blocks, nbins), np.float64) for _ in range(4)
+        ]
+
+    def ensure(self, blocks: int) -> None:
+        cur = self.arrays[0].shape[0]
+        if blocks <= cur:
+            return
+        grow = max(blocks, 2 * cur)
+        self.arrays = [
+            np.concatenate([a, np.zeros((grow - cur, a.shape[1]))])
+            for a in self.arrays
+        ]
+
+    def __iter__(self):
+        return iter(self.arrays)
 
 
 def mc_bin_site(

@@ -291,6 +291,8 @@ def test_mut_binning_device_needs_no_native_library(fix, tmp_path, capsys, monke
 
 @pytest.mark.parametrize("binning", ["device", "sharded"])
 def test_bcf_inputs_with_device_binning_exit_nonzero(tmp_path, capsys, binning):
+    """BCF inputs that do not exist, under --binning device|sharded: an
+    error block naming the missing file, exit 1, nothing written."""
     out = str(tmp_path / "x")
     argv = [
         "--mode", "mut", "--mut", str(tmp_path / "m"), "--target_bcf", str(tmp_path / "t"),
@@ -298,5 +300,6 @@ def test_bcf_inputs_with_device_binning_exit_nonzero(tmp_path, capsys, binning):
         "--torch_device", "cpu", "-o", out,
     ]
     assert cli.main(argv) != 0
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "####### error #######" in err and str(tmp_path / "m") in err
     assert not os.path.exists(out + ".coal")

@@ -27,7 +27,9 @@ digits) with the same NaN pattern.  The byte-identity routes
 (``--sampling mc_parity``, ``--em_dtype float64``) on the card against
 ``--torch_device cpu``, and the ``--checkpoint``, shard and rank paths
 against their single uninterrupted runs: equal bytes, bitwise equal
-histograms and rates.
+histograms and rates.  Mode mut on BCF and BAM inputs: one launch of each
+kernel a run, the ``.colate_mat`` of ``--binning auto`` equal to the
+CPU's, identified rates within 1e-4 of the host f64 EM's.
 """
 
 import filecmp
@@ -431,6 +433,59 @@ def test_cli_binning_device_on_the_card(card, fix, tmp_path):
     _run(fix, str(tmp_path / "sharded"), "--em_dtype", "float64", "--torch_device", "cuda",
          "--binning", "sharded")
     assert filecmp.cmp(str(tmp_path / "dev.coal"), str(tmp_path / "sharded.coal"), shallow=False)
+
+
+# ---- mode mut on BCF and BAM inputs ----
+
+KINDS = ("bcf_bcf", "bcf_split", "bam_bcf", "bam_bcf_per_chr", "bam_bam")
+
+
+@pytest.fixture(scope="module")
+def bb(tmp_path_factory):
+    from colate_tpu_torch.fixtures import make_bcf_bam_fixture
+
+    return make_bcf_bam_fixture(str(tmp_path_factory.mktemp("bcfbam")))
+
+
+def _bb_argv(bb, kind, out, *extra):
+    return ["--mode", "mut", "--mut", bb["mut_prefix"], "--chr", bb["chrfile"], "--bins",
+            "3,7,0.2", "--seed", "43", *bb["inputs"][kind], "-o", out, *extra]
+
+
+@pytest.mark.parametrize("binning", ["auto", "device"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_bcf_bam_inputs_on_the_card(card, bb, tmp_path, capsys, kind, binning):
+    """Each input kind at B=16 on the card: one EM kernel launch, and under
+    --binning device one binning kernel launch; the .colate_mat under auto
+    is the one --torch_device cpu writes (host binning and bootstrap), and
+    the identified rates within 1e-4 of the host f64 EM's."""
+    ems, bins = em_kernel.launches, bin_kernel.launches
+    out = str(tmp_path / "card")
+    assert cli.main(_bb_argv(bb, kind, out, "--num_bootstraps", "16", "--binning", binning)) == 0
+    err = capsys.readouterr().err
+    assert em_kernel.launches == ems + 1
+    assert bin_kernel.launches == bins + (binning == "device")
+    assert "provider=cuda-kernel:float32 " in err
+    assert f"binning={'cuda-kernel:float32' if binning == 'device' else 'native'} " in err
+    host = str(tmp_path / "host")
+    assert cli.main(_bb_argv(bb, kind, host, "--num_bootstraps", "16", "--binning", binning,
+                             "--torch_device", "cpu", "--em_dtype", "float64")) == 0
+    if binning == "auto":
+        assert filecmp.cmp(out + ".colate_mat", host + ".colate_mat", shallow=False)
+    a, b = CoalFile.read(out + ".coal").rates, CoalFile.read(host + ".coal").rates
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+    assert (b >= 1e-4).sum() >= 4 and rel[b >= 1e-4].max() <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["bcf_split", "bam_bcf"])
+def test_bcf_bam_parity_bytes_on_the_card(card, bb, tmp_path, kind):
+    """--sampling mc_parity --em_dtype float64 at B=8: the .coal on the card
+    is the CPU's bytes (which the CPU tests hold to python -m colate_tpu's)."""
+    for device in ("cuda", "cpu"):
+        assert cli.main(_bb_argv(bb, kind, str(tmp_path / device), "--num_bootstraps", "8",
+                                 "--sampling", "mc_parity", "--em_dtype", "float64",
+                                 "--torch_device", device)) == 0
+    assert filecmp.cmp(str(tmp_path / "cuda.coal"), str(tmp_path / "cpu.coal"), shallow=False)
 
 
 # ---- --checkpoint, shards and ranks on the card ----

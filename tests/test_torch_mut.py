@@ -208,11 +208,12 @@ def test_suffstats_names_a_missing_native_library(fix, tmp_path, monkeypatch):
 def test_port_never_loads_jax(fix, tmp_path):
     """Importing the port, its fixture module and chip_smoke.py and running
     mode mut under ``--binning auto``, ``device``, ``--sampling mc_parity``
-    and ``--checkpoint --devices 2 --binning sharded``, mode tree (the native walk, and the torch program with
-    ancient leaves) and mode local_ancestry (native, and the torch
-    program) in a fresh interpreter, with the plain torch versions of the
-    kernels, leaves jax and every module of colate_tpu out of
-    sys.modules."""
+    and ``--checkpoint --devices 2 --binning sharded``, on a single BCF and
+    on two BAMs, ``make_tmp`` on a BAM, mode tree (the native walk, and the
+    torch program with ancient leaves) and mode local_ancestry (native, and
+    the torch program) in a fresh interpreter, with the plain torch
+    versions of the kernels, leaves jax and every module of colate_tpu out
+    of sys.modules."""
     out = str(tmp_path / "nojax")
     trees = str(tmp_path / "trees")
     tree_argv = ["-i", trees, "--chr", fix["chrfile"], "--bins", "2,6,0.5", "-o", out + "_t",
@@ -245,6 +246,12 @@ def test_port_never_loads_jax(fix, tmp_path):
         "from colate_tpu_torch.models.local_ancestry import local_ancestry_estimate\n"
         f"est = local_ancestry_estimate(c.build_parser().parse_args({la_argv + ['-o', out + '_lad']!r}), backend='device')[0]\n"
         "assert est.routes == ['device:cpu', 'numpy-ancient'], est.routes\n"
+        "from colate_tpu_torch.fixtures import make_bcf_bam_fixture\n"
+        f"bb = make_bcf_bam_fixture({str(tmp_path / 'bb')!r}, n_rows=300, reads_per_contig=1500)\n"
+        "base = ['--mut', bb['mut_prefix'], '--chr', bb['chrfile'], '--torch_device', 'cpu']\n"
+        "for kind in ('bcf_split', 'bam_bam'):\n"
+        f"    assert c.main(['--mode', 'mut', '--bins', '3,7,0.5', *base, *bb['inputs'][kind], '-o', {out!r} + kind]) == 0\n"
+        f"assert c.main(['--mode', 'make_tmp', '--target_bam', bb['target_bam'], '--ref_genome', bb['rg_prefix'], *base, '-o', {out!r} + '_mt']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'colate_tpu'))\n"
         "print('LOADED ' + ' '.join(bad) if bad else 'NONE_LOADED')\n"
     )
@@ -262,6 +269,8 @@ def test_port_never_loads_jax(fix, tmp_path):
     assert "tree_done " in r.stderr and "route=device:cpu,native" in r.stderr
     assert "la_done " in r.stderr and "route=native" in r.stderr
     assert all(os.path.exists(out + x + ".coal") for x in ("_t", "_la"))
+    assert all(os.path.exists(out + k + ".colate_mat") for k in ("bcf_split", "bam_bam"))
+    assert os.path.exists(out + "_mt.colate.in")
 
 
 def test_no_jax_import_in_port_sources():
@@ -352,24 +361,7 @@ def test_cuda_without_a_card_raises(fix, tmp_path, monkeypatch):
     assert not os.path.exists(str(tmp_path / "x.coal"))
 
 
-@pytest.mark.parametrize("mode", ["count_topo", "make_tmp", "CondCoalRates"])
+@pytest.mark.parametrize("mode", ["count_topo", "print_tmp", "CondCoalRates"])
 def test_unported_modes_exit_nonzero(tmp_path, capsys, mode):
     assert cli.main(["--mode", mode, "-o", str(tmp_path / "x"), "--torch_device", "cpu"]) != 0
     assert "ROADMAP" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("inputs, binning", [
-    (("--target_bcf", "t", "--reference_bcf", "r"), "auto"),
-    (("--target_bam", "t", "--reference_bcf", "r", "--ref_genome", "g"), "native"),
-    (("--target_bam", "t", "--reference_bam", "r", "--ref_genome", "g"), "device"),
-], ids=["bcf-auto", "bam-bcf-native", "bam-bam-device"])
-def test_bcf_bam_inputs_exit_2(tmp_path, capsys, inputs, binning):
-    """BCF/BAM inputs are not ported: exit 2 naming their ROADMAP item,
-    under every --binning, and write nothing."""
-    out = str(tmp_path / "x")
-    argv = ["--mode", "mut", "--mut", str(tmp_path / "m"), "--bins", "3,7,0.2",
-            "--binning", binning, "--torch_device", "cpu", "-o", out]
-    argv += [str(tmp_path / a) if i % 2 else a for i, a in enumerate(inputs)]
-    assert cli.main(argv) == 2
-    assert "ROADMAP queue 1: BCF/BAM inputs" in capsys.readouterr().err
-    assert not os.path.exists(out + ".coal")
