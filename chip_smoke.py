@@ -69,17 +69,28 @@ source, started together) and:
      18 Mb contig, 200k ``.mut`` rows): ``--target_bam/--reference_bcf``
      under ``auto`` and ``device``, ``--target_bam/--reference_bam`` under
      ``auto``; ``make_tmp --target_bam`` as a process (1 and 4 inflate
-     threads, the same bytes) and a process that only imports the port,
-     each with its wall and max RSS from wait4;
+     threads, the same bytes, no torch imported) and processes that only
+     import the port (no torch) and torch, each with its wall and max RSS
+     from wait4;
 20.  ``mc_parity``/f64 bytes on the card equal to the CPU's on a small
-     fixture, ``--target_bcf`` alone and ``--target_bam/--reference_bcf``.
+     fixture, ``--target_bcf`` alone and ``--target_bam/--reference_bcf``;
+21.  (after 13) the last host modes, each a process timed with wait4 that
+     must not import torch: ``CondCoalRates`` on phase 12's two
+     chromosomes (100 samples in three groups, ``--groups FOC,CON``, four
+     bootstraps) under the analytic walk; the analytic walk and the
+     ``--sampling mc_parity`` replay within rtol 1e-3 of each other, with
+     the same NaN pattern, at tools/bench_aux.py's 50,000 trees x 20
+     haplotypes, and their distance at 2,000 trees x 200 haplotypes;
+     ``print_tmp`` (every printed site a ``.mut`` row), ``compare_tmp``
+     and ``count_topo`` (a third stream) on the north-star streams.
 
-Prints the measured times, one JSON line about the tree estimators'
-device programs (plain torch, not kernels), one JSON line about the
-kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
-failed check raises; the script exits non-zero without a result when
-torch sees no CUDA device, and it imports nothing of JAX or of the JAX
-package (the fixtures come from colate_tpu_torch/fixtures.py).
+Prints the measured times, one JSON line about the host modes of phase
+21, one about the tree estimators' device programs (plain torch, not
+kernels), one about the kernels, and as its last line ``{"ok": true,
+"device": {...}}``.  Any failed check raises; the script exits non-zero
+without a result when torch sees no CUDA device, and it imports nothing
+of JAX or of the JAX package (the fixtures come from
+colate_tpu_torch/fixtures.py).
 
     python3 chip_smoke.py --profile
 
@@ -116,6 +127,13 @@ N_HAP = 200
 TREE_BINS = "2,6,0.25"
 N_SEGMENTS = 1000
 N_BAM_READS = 2_000_000  # tools/bench_bam_stream.py's scale, bench.py:700-702
+# CondCoalRates' analytic walk against the reference's f32 replay: at
+# tools/bench_aux.py's 50,000 trees x 20 haplotypes, where the JAX package
+# gates them at rtol 1e-3 (BENCH_DETAILS.json cond_coal); at 200 haplotypes
+# the replay's f32 sums drift far from the f64 walk, and it takes seconds a
+# thousand trees, so there it runs on a cut input and is only read
+CC_GATE = (50_000, 20)
+CC_WIDTH_TREES = 2_000
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3
@@ -688,6 +706,7 @@ def tree_cli_phases(tmp: str, anc, mut, coords, smi: str) -> dict:
             print(f"mode {mode} {phase}: .coal {r.shape}, {int(ok.sum())} finite rates, max rel vs "
                   f"--torch_device cpu {rel:.3e} (<= 1e-5), NaN pattern equal", flush=True)
     del os.environ["COLATE_TPU_LOG"]
+    out["input"] = dict(prefix=prefix, chrfile=chrfile)
     return out
 
 
@@ -1059,32 +1078,22 @@ def bam_phase(base: list[str], dev, tmp: str, smi: str) -> dict:
         ref = host_reference(argv, dev)
         for binning in binnings:
             legs[f"{name}_{binning}"] = bcf_bam_leg(name, argv, binning, ref, tmp, smi)
-    def timed(cmd, threads=None):
-        """Wall and maximum resident set of one process, timed from a small
-        launcher: a child forked from this process would report this
-        process's resident set as its own maximum."""
-        env = dict(os.environ)
-        if threads:
-            env["COLATE_BGZF_THREADS"] = str(threads)
-        p = subprocess.run([sys.executable, "-c", WAIT4, *cmd], cwd=REPO, env=env,
-                           capture_output=True, text=True, timeout=600)
-        check(p.returncode == 0, f"the launcher exits 0: {p.stderr[-2000:]}")
-        run = json.loads(p.stdout)
-        check(run["rc"] == 0, f"{' '.join(cmd[2:5])} exits 0: {run['err']}")
-        return run
-
     dec_mb = bam["n_reads"] * (4 + 32 + 2 + 4 + 30 + 60) / 1e6
-    floor = timed([sys.executable, "-c", "import colate_tpu_torch"])
-    print(f"a process that imports colate_tpu_torch (and torch) and exits: wall {floor['wall']:.4f} s, "
-          f"max RSS {floor['max_rss_mb']:.1f} MB (wait4) [{smi}]", flush=True)
+    floors = {}
+    for what in ("colate_tpu_torch", "torch"):
+        floors[what] = run = timed_process([sys.executable, "-c", IMPORT, what])
+        print(f"a process that imports {what} and exits: wall {run['wall']:.4f} s, max RSS "
+              f"{run['max_rss_mb']:.1f} MB (wait4) [{smi}]", flush=True)
+    check(not floors["colate_tpu_torch"]["torch"], "importing colate_tpu_torch imports no torch")
     # the native inflate's default of one worker thread (native/hts.cpp),
     # then four on this host's cores
     made_runs = {}
     for threads in (None, 4):
         out = os.path.join(tmp, f"bam_made_{threads or 1}")
-        run = timed([sys.executable, "-m", "colate_tpu_torch", "--mode", "make_tmp", "--target_bam",
-                     bam["target_bam"], *genome, "-o", out], threads)
+        run = timed_process(mode_process(["--mode", "make_tmp", "--target_bam", bam["target_bam"],
+                                          *genome, "-o", out]), threads)
         wall, max_rss_mb = run["wall"], run["max_rss_mb"]
+        check(not run["torch"], "make_tmp --target_bam imported no torch")
         made_runs[threads or 1] = dict(wall=wall, max_rss_mb=max_rss_mb)
         made = read_colate_in(out + ".colate.in")
         check(len(made) > 1000 and bool(np.all(np.diff(made.bp) > 0))
@@ -1096,12 +1105,13 @@ def bam_phase(base: list[str], dev, tmp: str, smi: str) -> dict:
     check(same_bytes(os.path.join(tmp, "bam_made_1.colate.in"),
                      os.path.join(tmp, "bam_made_4.colate.in")),
           "make_tmp writes the same bytes with 1 and 4 inflate threads")
-    legs["make_tmp"] = dict(made_runs, import_only=floor)
+    legs["make_tmp"] = dict(made_runs, import_only=floors)
     return legs
 
 
 # runs the command in its arguments and prints its wall and its own maximum
-# resident set (os.wait4, as tools/bench_bam_stream.py measures)
+# resident set (os.wait4, as tools/bench_bam_stream.py measures), and
+# whether the command's process imported torch (its last stderr line)
 WAIT4 = """
 import json, os, subprocess, sys, time
 t0 = time.perf_counter()
@@ -1109,8 +1119,154 @@ p = subprocess.Popen(sys.argv[1:], stdout=subprocess.DEVNULL, stderr=subprocess.
 err = p.stderr.read().decode()
 _, status, ru = os.wait4(p.pid, 0)
 print(json.dumps(dict(wall=time.perf_counter() - t0, max_rss_mb=ru.ru_maxrss / 1000.0,
-                      rc=os.waitstatus_to_exitcode(status), err=err[-2000:])))
+                      rc=os.waitstatus_to_exitcode(status), err=err[-2000:],
+                      torch=err.rstrip().endswith("torch imported: True"))))
 """
+
+# a mode of the port's CLI in this process (python -m colate_tpu_torch's
+# main), then, as its last stderr line, whether torch was imported in it
+RUN_MODE = """
+import sys
+from colate_tpu_torch import cli
+rc = cli.main(sys.argv[1:])
+print(f"torch imported: {'torch' in sys.modules}", file=sys.stderr)
+sys.exit(rc)
+"""
+# the same for a process that only imports the module named in its argument
+IMPORT = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(f"torch imported: {'torch' in sys.modules}", file=sys.stderr)
+"""
+
+
+def mode_process(argv: list[str]) -> list[str]:
+    """The command of a process that runs one mode of the port's CLI."""
+    return [sys.executable, "-c", RUN_MODE, *argv]
+
+
+def timed_process(cmd: list[str], threads: int | None = None) -> dict:
+    """Wall and maximum resident set of one process, timed from a small
+    launcher (a child forked from this process would report this process's
+    resident set as its own maximum), and whether it imported torch."""
+    env = dict(os.environ)
+    if threads:
+        env["COLATE_BGZF_THREADS"] = str(threads)
+    p = subprocess.run([sys.executable, "-c", WAIT4, *cmd], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    check(p.returncode == 0, f"the launcher exits 0: {p.stderr[-2000:]}")
+    run = json.loads(p.stdout)
+    check(run["rc"] == 0, f"{' '.join(cmd[3:5])} exits 0: {run['err']}")
+    check(run["err"].rstrip().splitlines()[-1].startswith("torch imported: "),
+          f"{' '.join(cmd[3:5])} reported its imports")
+    return run
+
+
+def host_modes_phase(fix: dict, trees: dict, tmp: str, smi: str) -> dict:
+    """Phase 21: the last four host modes at full width, each a process
+    timed with wait4, none importing torch.  CondCoalRates on the two
+    chromosomes of phases 12-13 under the analytic walk; the analytic walk
+    against the --sampling mc_parity replay at tools/bench_aux.py's scale
+    (CC_GATE), where they must agree within rtol 1e-3 with the same NaN
+    pattern, and at the full width on a cut input (CC_WIDTH_TREES trees),
+    where only their distance is read; print_tmp, compare_tmp and
+    count_topo on the north-star streams."""
+    import numpy as np
+
+    from colate_tpu_torch.fixtures import make_stream, tree_chromosome, write_anc
+
+    runs = {}
+
+    def run(name, argv, out):
+        r = timed_process(mode_process(argv + ["-o", out]))
+        check(not r["torch"], f"{name} imported no torch")
+        check(os.path.getsize(out) > 0, f"{name} wrote {out}")
+        runs[name] = dict(wall=r["wall"], max_rss_mb=r["max_rss_mb"])
+        print(f"{name}: wall {r['wall']:.4f} s, max RSS {r['max_rss_mb']:.1f} MB (wait4), torch "
+              f"not imported [{smi}]", flush=True)
+        with open(out) as fh:
+            return fh.read().splitlines()
+
+    def poplabels(n_samples, foc, con):
+        """FOC, CON and OTH samples in turn."""
+        path = os.path.join(tmp, f"cond{n_samples}.poplabels")
+        with open(path, "w") as fh:
+            fh.write("sample population group sex\n")
+            fh.writelines(f"S{i} {'FOC' if i < foc else 'CON' if i < con else 'OTH'} G1 NA\n"
+                          for i in range(n_samples))
+        return path
+
+    def rates(lines):
+        check(lines[0] == "boot lineage_epoch epoch.start group rate",
+              "CondCoalRates wrote the JAX package's header")
+        return np.array([float(ln.split()[4]) for ln in lines[1:]])
+
+    one = os.path.join(tmp, "cond_one.txt")
+    with open(one, "w") as fh:
+        fh.write("1\n")
+    base = ["--mode", "CondCoalRates", "--groups", "FOC,CON", "--num_bootstraps", "4"]
+    wide = base + ["--poplabels", poplabels(N_HAP // 2, 33, 66), "--bins", TREE_BINS]
+    full = rates(run(f"CondCoalRates analytic, 2 x {N_TREES} trees x {N_HAP} haplotypes",
+                     wide + ["-i", trees["prefix"], "--chr", trees["chrfile"]],
+                     os.path.join(tmp, "cond_full.txt")))
+    check(np.isfinite(full).sum() > 50, f"CondCoalRates: {int(np.isfinite(full).sum())} finite rates")
+    gate_trees, gate_hap = CC_GATE
+    for name, T, N, argv, gated in (
+        ("gate", gate_trees, gate_hap,
+         base + ["--poplabels", poplabels(gate_hap // 2, 3, 6), "--bins", "2,6,0.5"], True),
+        ("width", CC_WIDTH_TREES, N_HAP, wide, False),
+    ):
+        t0 = time.perf_counter()
+        prefix = os.path.join(tmp, f"cond_{name}")
+        anc, mut, _ = tree_chromosome(T, N, seed=17)
+        write_anc(prefix + "_chr1.anc", anc)
+        mut.write(prefix + "_chr1.mut")
+        del anc, mut
+        print(f"CondCoalRates input of {T} trees x {N} haplotypes written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        got = {sampling: rates(run(f"CondCoalRates {sampling}, {T} trees x {N} haplotypes",
+                                   argv + ["-i", prefix, "--chr", one, "--sampling", sampling],
+                                   os.path.join(tmp, f"cond_{name}_{sampling}.txt")))
+               for sampling in ("analytic", "mc_parity")}
+        a, r = got["analytic"], got["mc_parity"]
+        same_nan = bool(np.array_equal(np.isnan(a), np.isnan(r)))
+        ok = np.isfinite(r)
+        rel = rel_err(a[ok], r[ok])
+        runs[f"analytic vs replay, {T} trees x {N} haplotypes"] = dict(
+            finite=int(ok.sum()), max_rel=rel, nan_pattern_equal=same_nan)
+        print(f"CondCoalRates analytic vs replay, {T} trees x {N} haplotypes: {int(ok.sum())} "
+              f"finite rates, max rel {rel:.3e}{' (<= 1e-3)' if gated else ''}, NaN pattern "
+              f"equal {same_nan}", flush=True)
+        check(same_nan and ok.sum() > 50, f"CondCoalRates at {T} x {N}: same NaN pattern")
+        if gated:
+            check(rel <= 1e-3, f"CondCoalRates at {T} x {N}: the analytic walk within 1e-3 of "
+                               "the replay")
+
+    # print_tmp, compare_tmp, count_topo on the north-star streams
+    tmp_in = ["--mut", fix["mut_prefix"], "--target_tmp", fix["target"], "--chr", fix["chrfile"]]
+    cond_in = os.path.join(tmp, "third.colate.in")
+    make_stream(cond_in, fix["chroms"], fix["mut_tables"], seed=4321, n_hap=20)
+    printed = run("print_tmp, 4 x 300k .mut rows", ["--mode", "print_tmp", *tmp_in],
+                  os.path.join(tmp, "printed.txt"))
+    fields = [ln.split() for ln in printed]
+    check(all(len(f) == 8 for f in fields), "print_tmp rows of 8 fields")
+    chrom = np.array([f[0] for f in fields])
+    bp = np.array([int(f[1]) for f in fields], np.int64)
+    known = np.zeros(len(fields), bool)
+    for c, mt in zip(fix["chroms"], fix["mut_tables"]):
+        known |= (chrom == c) & np.isin(bp, mt.pos)
+    check(bool(known.all()), "every (chrom, bp) print_tmp printed is a row of the .mut")
+    compared = run("compare_tmp, 4 x 300k .mut rows",
+                   ["--mode", "compare_tmp", *tmp_in, "--reference_tmp", fix["reference"],
+                    "--seed", "11"], os.path.join(tmp, "compared.txt"))
+    check(all(len(ln.split()) == 4 for ln in compared), "compare_tmp rows of 4 fields")
+    topo = run("count_topo, 4 x 300k .mut rows",
+               ["--mode", "count_topo", *tmp_in, "--reference_tmp", fix["reference"], "-i",
+                cond_in, "--seed", "13"], os.path.join(tmp, "topo.txt"))
+    check(all(len(ln.split()) == 6 for ln in topo), "count_topo rows of 6 fields")
+    print(f"print_tmp {len(printed)} rows, compare_tmp {len(compared)} bins, count_topo "
+          f"{len(topo)} sites", flush=True)
+    return runs
 
 
 def bcf_bam_parity_phase(tmp: str, smi: str) -> None:
@@ -1571,7 +1727,11 @@ def main(argv: list[str] | None = None) -> int:
 
         # ---- 10-13. the tree estimators ----
         programs, anc, mut, coords = tree_layers(dev, smi)
-        tree_cli_phases(tmp, anc, mut, coords, smi)
+        trees = tree_cli_phases(tmp, anc, mut, coords, smi)["input"]
+        del anc, mut, coords
+
+        # ---- 21. the last host modes, as processes, without torch ----
+        print(json.dumps({"host_modes": host_modes_phase(fix, trees, tmp, smi)}), flush=True)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "colate_tpu"))
     check(not loaded, f"the port ran without JAX and without colate_tpu (loaded: {loaded})")

@@ -1,19 +1,18 @@
 """colate_tpu_torch — the PyTorch/CUDA port of colate_tpu.
 
-Runs mode ``mut`` end to end with PyTorch on an NVIDIA GPU.  It carries
-its own copy of colate_tpu's host layer (parsers, native C++, bootstrap,
-epochs, file formats) and replaces its JAX programs: the EM in plain
+Runs every mode of colate_tpu's CLI, mode ``mut`` and the tree
+estimators with PyTorch on an NVIDIA GPU.  It carries its own copy of
+colate_tpu's host layer (parsers, native C++, bootstrap, epochs, file
+formats, the host modes) and replaces its JAX programs: the EM in plain
 torch (ops/em.py), the float32 EM as a hand-written CUDA kernel
-(ops/em_kernel.py, csrc/em_step.cu) and the analytic binning as another
-(ops/bin_kernel.py, csrc/bin_hist.cu).  It imports nothing of JAX or of
-colate_tpu.
+(ops/em_kernel.py, csrc/em_step.cu), the analytic binning as another
+(ops/bin_kernel.py, csrc/bin_hist.cu) and the tree programs as torch
+programs (ops/tree_kernel.py, ops/la_kernel.py).  It imports nothing of
+JAX or of colate_tpu.
+
+Importing the package does not import torch: the modules that compute
+with torch take it from ``_torch.py``, which turns TF32 off, and the host
+modes never reach them.
 """
-
-import torch
-
-# the reference pins Precision.HIGHEST on every f32 contraction
-# (colate_tpu/ops/em_pallas.py); TF32 would cut operands to 10 mantissa bits
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"

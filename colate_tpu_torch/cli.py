@@ -2,23 +2,23 @@
 
 The flag surface is colate_tpu's (``_build_parser``, ``_read_chr_list``
 and ``_print_rusage`` are copied from colate_tpu/cli.py) plus
-``--torch_device {cuda,cpu}``.  Ported:
+``--torch_device {cuda,cpu}``.  Every mode of colate_tpu's CLI runs:
 
 - mode ``mut`` on every input of the reference: ``--target_bcf`` with or
   without ``--reference_bcf``, ``--target_bam`` with ``--reference_bcf``
   (``--per_chr_bam``) or ``--reference_bam`` (BAM or CRAM), and
   ``--target_tmp/--reference_tmp``;
-- the host modes ``make_tmp``, ``preprocess_mut``, ``calc_depth`` and
-  ``get_deam``, which do no device work;
-- the tree estimators, modes ``tree``/``coal`` and ``local_ancestry``.
+- the tree estimators, modes ``tree``/``coal`` and ``local_ancestry``;
+- the host modes ``make_tmp``, ``preprocess_mut``, ``print_tmp``,
+  ``compare_tmp``, ``count_topo``, ``calc_depth``, ``get_deam`` and
+  ``CondCoalRates``, which do no device work, need no card and never
+  import torch (this module imports it only for the modes that use it).
 
-The modes that are not yet (``NOT_PORTED``) exit 2 with an error block
-naming the ROADMAP item that ports them.  ``--torch_device cuda`` on a
-machine without a card raises in mode ``mut`` and the tree estimators:
-the port never drops to the CPU by itself.  Under ``cuda`` the tree
-estimators run their device programs on the card; under ``cpu`` the
-reference's host routes (the native walks; the torch program on the CPU
-for ancient leaves in mode tree).
+``--torch_device cuda`` on a machine without a card raises in mode
+``mut`` and the tree estimators: the port never drops to the CPU by
+itself.  Under ``cuda`` the tree estimators run their device programs on
+the card; under ``cpu`` the reference's host routes (the native walks;
+the torch program on the CPU for ancient leaves in mode tree).
 
 ``--binning device`` and ``--binning sharded`` bin the sites of mode
 ``mut`` on ``--torch_device``.  Without ``--devices`` ``sharded`` is one
@@ -34,8 +34,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-import torch
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -175,15 +173,6 @@ def build_parser():
     return p
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(
-        f"####### error #######\n{what} is not ported to colate_tpu_torch yet "
-        f"(ROADMAP queue 1: {item}); use python -m colate_tpu",
-        file=sys.stderr,
-    )
-    return 2
-
-
 def main(argv: list[str] | None = None) -> int:
     """CLI entry point (colate_tpu.cli.main's error blocks and rusage)."""
     try:
@@ -195,31 +184,37 @@ def main(argv: list[str] | None = None) -> int:
         _print_rusage()
 
 
-# the modes that are not ported yet, and the ROADMAP item that ports them
-NOT_PORTED = {
-    "print_tmp": "item 6, the host modes",
-    "compare_tmp": "item 6, the host modes",
-    "count_topo": "item 6, the host modes",
-    "CondCoalRates": "item 6, the host modes",
-}
-
-
 def _dispatch(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     mode = args.mode
-    if mode in NOT_PORTED:
-        return _not_ported(f"mode {mode}", NOT_PORTED[mode])
     if mode == "mut":
         return _run_mut(args)
-    # the host modes: converters and BAM statistics, no device work
+    # the host modes: converters, stream comparisons, BAM statistics and
+    # CondCoalRates, no device work
     if mode == "make_tmp":
         from colate_tpu_torch.models.make_tmp import run_make_tmp
 
         return run_make_tmp(args)
+    if mode == "print_tmp":
+        from colate_tpu_torch.models.print_tmp import run_print_tmp
+
+        return run_print_tmp(args)
     if mode == "preprocess_mut":
         from colate_tpu_torch.models.preprocess_mut import run_preprocess_mut
 
         return run_preprocess_mut(args)
+    if mode == "compare_tmp":
+        from colate_tpu_torch.models.compare_tmp import run_compare_tmp
+
+        return run_compare_tmp(args)
+    if mode == "count_topo":
+        from colate_tpu_torch.models.compare_tmp import run_count_topo
+
+        return run_count_topo(args)
+    if mode == "CondCoalRates":
+        from colate_tpu_torch.models.cond_coal import run_cond_coal
+
+        return run_cond_coal(args)
     if mode == "calc_depth":
         from colate_tpu_torch.models.bam_stats import run_calc_depth
 
@@ -263,6 +258,8 @@ def _run_mut(args) -> int:
 
 
 def _require_card(args) -> None:
+    from colate_tpu_torch._torch import torch
+
     if args.torch_device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--torch_device cuda, but torch sees no CUDA device; "

@@ -39,22 +39,19 @@ from __future__ import annotations
 import ctypes
 import sys
 import time
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
 from colate_tpu_torch.formats.anc import AncFile, node_ages
 from colate_tpu_torch.formats.mut import MutTable
 from colate_tpu_torch.formats.sample import Sample
 from colate_tpu_torch.hostrng import MT19937
 from colate_tpu_torch.models.tree_coal import BLOCK_SIZE_TREES, epochs_from_bins_tree, tree_spans
-from colate_tpu_torch.ops.la_kernel import (
-    la_accumulate_device,
-    la_accumulate_host,
-    la_accumulate_native,
-    pair_keys,
-)
 from colate_tpu_torch.utils.progress import log_event
+
+if TYPE_CHECKING:
+    import torch
 
 
 def _tree_bp_ranges(anc: AncFile, mut: MutTable):
@@ -142,6 +139,8 @@ class CoalLA:
 
     def __init__(self, epochs: np.ndarray, num_groups: int, max_blocks: int = 256,
                  backend: str = "auto", device: str | torch.device = "cuda"):
+        from colate_tpu_torch._torch import torch
+
         self.epochs = epochs
         self.G = num_groups
         self.E = epochs.shape[0]
@@ -308,6 +307,13 @@ class CoalLA:
                 )
             route = "numpy-ancient"
         else:
+            from colate_tpu_torch.ops.la_kernel import (
+                la_accumulate_device,
+                la_accumulate_host,
+                la_accumulate_native,
+                pair_keys,
+            )
+
             kargs = self.modern_inputs(anc, mut, segments, is_global_tail)
             t1 = time.perf_counter()
             if self.backend == "device":

@@ -29,20 +29,17 @@ from __future__ import annotations
 
 import sys
 import time
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
 from colate_tpu_torch.formats.anc import AncFile, node_ages
 from colate_tpu_torch.formats.mut import MutTable
 from colate_tpu_torch.hostrng import MT19937
-from colate_tpu_torch.ops.tree_kernel import (
-    leaf_zero_applicable,
-    populate_device,
-    populate_device_sorted,
-    populate_sorted_native,
-)
 from colate_tpu_torch.utils.progress import log_event
+
+if TYPE_CHECKING:
+    import torch
 
 BLOCK_SIZE_TREES = 5000  # coal.cpp:140
 _INITIAL_BLOCKS = 256  # starting accumulator size; grows on demand
@@ -203,6 +200,15 @@ def accumulate_tree_stats(
     ``timings`` (if given) gains ``prepare`` (spans and node ages) and
     ``populate`` seconds.
     """
+    # the device routes need torch; the host functions above do not
+    from colate_tpu_torch._torch import torch
+    from colate_tpu_torch.ops.tree_kernel import (
+        leaf_zero_applicable,
+        populate_device,
+        populate_device_sorted,
+        populate_sorted_native,
+    )
+
     device = torch.device(device)
     t0 = time.perf_counter()
     N = anc.n_hap
@@ -307,7 +313,7 @@ def tree_rates(args, backend: str = "auto"):
     routes, timings).  ``args`` carries the CLI's fields (input, bins,
     coal, chr_file, years_per_gen, num_bootstraps, dist, torch_device:
     the card when absent)."""
-    device = torch.device(getattr(args, "torch_device", "cuda"))
+    device = getattr(args, "torch_device", "cuda")
     timings: dict = {}
     ypg = float(np.float32(args.years_per_gen)) if args.years_per_gen else 28.0
     epochs = (

@@ -2,17 +2,16 @@
 ``.mut``, ``.colate.in`` and ``.anc`` decoders, the fused prefilter, join
 and analytic binning of mode ``mut``, the host f64 EM, the host walks of
 modes ``tree`` and ``local_ancestry`` (node ages, children, the sorted
-populate, the local-ancestry accumulation), and the BCF2 decoder and the
-streaming BAM/CRAM pileup of ``hts.cpp``.
+populate, the local-ancestry accumulation), the BCF2 decoder and the
+streaming BAM/CRAM pileup of ``hts.cpp``, and the CondCoalRates walks of
+``cond.cpp`` (the analytic f64 prefix-sum walk and the f32 replay).
 
-The sources are the JAX package's ``native/`` C++, copied whole.  Only the
-sources that something binds are built: ``cond.cpp`` (the CondCoalRates
-walks) is left out of the build until its mode is ported.  The
-library is built with ``g++`` at first use into ``colate_tpu_torch/_build/``
-under a name keyed by a hash of the sources and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  The build writes a
-temporary file and renames it into place, under a lock, so processes that
-load together all see a whole library.  A failed build or load raises,
+The sources are the JAX package's ``native/`` C++, copied whole, and all
+of them are built.  The library is built with ``g++`` at first use into
+``colate_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused.  The build writes a temporary file and renames it into place,
+under a lock, so processes that load together all see a whole library.  A failed build or load raises,
 naming the library's path; nothing falls back to Python decoders.
 """
 
@@ -29,7 +28,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
-SOURCES = ("io.cpp", "em.cpp", "hts.cpp", "la.cpp")
+SOURCES = ("io.cpp", "em.cpp", "hts.cpp", "la.cpp", "cond.cpp")
 HEADERS = ("cram.hpp",)
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 LIBS = ("-lz", "-lpthread")
@@ -189,6 +188,24 @@ def _declare(lib) -> None:
         + [P] * 8                     # parent, ages, lab, c1, c2, w, blocks, epochs
         + [L, ctypes.c_int32]         # blocks, threads
         + [P, P]                      # out num, den
+    )
+    lib.cn_cond_chrom.restype = None
+    lib.cn_cond_chrom.argtypes = (
+        [L] * 3                       # T, M, N
+        + [P, P, P, P]                # parent, blen, factors, blocks
+        + [P, L, P, L]                # focal, n, cond, n
+        + [P, L]                      # group_of_hap, G
+        + [P, L, P, L]                # epochs E, epochs_focal F
+        + [P, P, P]                   # sample_ages|NULL, num, denom
+    )
+    lib.cn_cond_chrom_fast.restype = None
+    lib.cn_cond_chrom_fast.argtypes = (
+        [L] * 3                       # T, M, N
+        + [P, P, P, P]                # parent, blen, factors, blocks
+        + [P, L, P, L]                # focal, n, cond, n
+        + [P, L]                      # group_of_hap, G
+        + [P, L, P, L]                # epochs E, epochs_focal F
+        + [P, P]                      # num, denom (f64)
     )
     lib.cn_bam_open.restype = P
     lib.cn_bam_open.argtypes = [ctypes.c_char_p, I, I, I, I, ctypes.c_char_p, I]

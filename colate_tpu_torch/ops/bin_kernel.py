@@ -29,8 +29,8 @@ import dataclasses
 import functools
 
 import numpy as np
-import torch
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.config import NUM_AGE_BINS, age_bin_edges
 from colate_tpu_torch.pipeline.binning import MAX_BLOCKS
 

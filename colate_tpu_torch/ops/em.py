@@ -17,8 +17,8 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
-import torch
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.config import (
     COAL_RATE_FLOOR,
     EM_CONV_RATIO,

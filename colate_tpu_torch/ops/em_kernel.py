@@ -28,8 +28,8 @@ import ctypes
 import functools
 
 import numpy as np
-import torch
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.config import (
     COAL_RATE_FLOOR,
     EM_MAX_ITER,

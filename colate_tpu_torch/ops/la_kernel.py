@@ -42,8 +42,8 @@ import ctypes
 import os
 
 import numpy as np
-import torch
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.ops.tree_kernel import block_sums
 
 SLAB = 1 << 16  # items a program run takes at most (bounds memory only)

@@ -45,7 +45,8 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
-import torch
+
+from colate_tpu_torch._torch import torch
 
 SLAB = 1 << 16  # trees a program run takes at most (bounds memory only)
 

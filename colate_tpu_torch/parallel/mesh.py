@@ -27,8 +27,8 @@ import tempfile
 import time
 
 import numpy as np
-import torch
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.config import EM_MAX_ITER, EM_MIN_ITER, NUM_AGE_BINS
 from colate_tpu_torch.pipeline.join import JoinedSites
 

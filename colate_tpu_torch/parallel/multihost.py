@@ -30,9 +30,9 @@ import datetime
 import os
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.config import NUM_AGE_BINS, MutRunConfig
 
 TIMEOUT = datetime.timedelta(minutes=10)

@@ -30,8 +30,8 @@ notshared, shared_emp, notshared_emp).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from colate_tpu_torch._torch import torch
 from colate_tpu_torch.config import (
     AGE_BIN_C,
     NUM_AGE_BINS,

@@ -726,3 +726,75 @@ def test_tree_modes_on_the_card(card, trees, tmp_path, capsys, case):
     ok = np.isfinite(ref)
     assert ok.sum() > 10
     np.testing.assert_allclose(ours[ok], ref[ok], rtol=1e-5)
+
+
+# ---- the host modes on a card machine -------------------------------------------
+
+def host_mode_outputs(root: str, main=cli.main) -> dict:
+    """print_tmp on tests/test_cli.py's fixture and CondCoalRates on
+    tests/test_aux_modes.py's cond_fixture layout (four bootstraps, the
+    analytic walk and the replay), through ``main`` (the port's CLI under
+    its default --torch_device); the sha256 of each output."""
+    import hashlib
+
+    from colate_tpu_torch.fixtures import make_anc_mut
+
+    f = make_fixture(os.path.join(root, "tmp"), n_per_chrom=800, seed=31)
+    prefix = os.path.join(root, "trees")
+    for i, c in enumerate(["1", "2"]):
+        make_anc_mut(prefix, c, N=12, num_trees=19, seed=61 + i)
+    pop = os.path.join(root, "pop.poplabels")
+    with open(pop, "w") as fh:
+        fh.write("sample population group sex\n")
+        fh.writelines(f"S{i} {'FOC' if i < 2 else 'CON' if i < 4 else 'OTH'} G1 NA\n"
+                      for i in range(6))
+    runs = {"print_tmp": ["--mode", "print_tmp", "--mut", f["mut_prefix"], "--target_tmp",
+                          f["target"], "--chr", f["chrfile"]]}
+    for sampling in ("analytic", "mc_parity"):
+        runs[f"CondCoalRates-{sampling}"] = [
+            "--mode", "CondCoalRates", "-i", prefix, "--chr", f["chrfile"], "--poplabels", pop,
+            "--groups", "FOC,CON", "--bins", "2,6,0.5", "--seed", "7", "--num_bootstraps", "4",
+            "--sampling", sampling]
+    out = {}
+    for name, argv in runs.items():
+        path = os.path.join(root, name + ".txt")
+        assert main(argv + ["-o", path]) == 0
+        with open(path, "rb") as fh:
+            out[name] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+# host_mode_outputs of python -m colate_tpu on the CPU
+# (tests/test_torch_host_modes.py holds it)
+HOST_MODE_SHA256 = {
+    "print_tmp": "405bf4de832507de81130fd9df27e6cfb58b1d31e22ad86265e177df84124b81",
+    "CondCoalRates-analytic": "65c966c0722b1d6be8a09bebfc4a66d5aa2557fcb389780e56d65af7ed9e0ffe",
+    "CondCoalRates-mc_parity": "2130a3213141dde7cb62205f3cd1571291e4c4e4fef76d981b76e95712e9b182",
+}
+
+
+def test_host_modes_on_a_card_machine_write_the_cpu_bytes(card, tmp_path):
+    assert host_mode_outputs(str(tmp_path)) == HOST_MODE_SHA256
+
+
+def test_tf32_stays_off_after_mode_tree_on_the_card(card, trees, tmp_path, capsys):
+    assert cli.main(["--mode", "tree", "-i", trees["prefix"], "--chr", trees["chrfile"],
+                     "--bins", "1,6,0.25", "-o", str(tmp_path / "t")]) == 0
+    assert "device" in capsys.readouterr().err.split("route=")[-1]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_trace_of_the_em_on_the_card(card, fix, tmp_path, monkeypatch):
+    """COLATE_TPU_TRACE=<dir> on the card: the trace holds the EM kernel's
+    launch on the device, and the .coal is a run's without it."""
+    import json
+
+    _run(fix, str(tmp_path / "plain"))
+    monkeypatch.setenv("COLATE_TPU_TRACE", str(tmp_path / "trace"))
+    _run(fix, str(tmp_path / "traced"))
+    (name,) = os.listdir(tmp_path / "trace")
+    with open(tmp_path / "trace" / name) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert filecmp.cmp(str(tmp_path / "plain.coal"), str(tmp_path / "traced.coal"), shallow=False)

@@ -361,7 +361,55 @@ def test_cuda_without_a_card_raises(fix, tmp_path, monkeypatch):
     assert not os.path.exists(str(tmp_path / "x.coal"))
 
 
-@pytest.mark.parametrize("mode", ["count_topo", "print_tmp", "CondCoalRates"])
-def test_unported_modes_exit_nonzero(tmp_path, capsys, mode):
-    assert cli.main(["--mode", mode, "-o", str(tmp_path / "x"), "--torch_device", "cpu"]) != 0
-    assert "ROADMAP" in capsys.readouterr().err
+# the 11 modes of --mode's help, and the function of the port that runs each
+MODES = {
+    "mut": ("colate_tpu_torch.cli", "_run_mut"),
+    "make_tmp": ("colate_tpu_torch.models.make_tmp", "run_make_tmp"),
+    "preprocess_mut": ("colate_tpu_torch.models.preprocess_mut", "run_preprocess_mut"),
+    "print_tmp": ("colate_tpu_torch.models.print_tmp", "run_print_tmp"),
+    "compare_tmp": ("colate_tpu_torch.models.compare_tmp", "run_compare_tmp"),
+    "count_topo": ("colate_tpu_torch.models.compare_tmp", "run_count_topo"),
+    "calc_depth": ("colate_tpu_torch.models.bam_stats", "run_calc_depth"),
+    "get_deam": ("colate_tpu_torch.models.bam_stats", "run_get_deam"),
+    "CondCoalRates": ("colate_tpu_torch.models.cond_coal", "run_cond_coal"),
+    "tree": ("colate_tpu_torch.models.tree_coal", "run_tree_mode"),
+    "local_ancestry": ("colate_tpu_torch.models.local_ancestry", "run_local_ancestry"),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_every_mode_is_ported(tmp_path, capsys, monkeypatch, mode):
+    """Each mode of --help's list reaches its runner through the port's
+    parser (the runner stubbed to record its arguments), and none exits
+    with a "not ported" error."""
+    import importlib
+
+    help_modes = [a for a in cli.build_parser()._actions if a.dest == "mode"][0].help
+    assert [m.strip() for m in help_modes.split(",")] == list(MODES)
+    module, name = MODES[mode]
+    seen = []
+    monkeypatch.setattr(importlib.import_module(module), name, lambda args: seen.append(args) or 0)
+    assert cli.main(["--mode", mode, "-o", str(tmp_path / "x"), "--torch_device", "cpu"]) == 0
+    assert len(seen) == 1 and seen[0].mode == mode and seen[0].output == str(tmp_path / "x")
+    assert "not ported" not in capsys.readouterr().err
+    assert not hasattr(cli, "NOT_PORTED")
+
+
+def test_trace_of_the_em(fix, tmp_path, monkeypatch, capsys):
+    """COLATE_TPU_TRACE=<dir> writes a torch.profiler trace of the EM there
+    and the .coal bytes of a run without it; unset, nothing is written."""
+    trace = tmp_path / "trace"
+    argv = ["--num_bootstraps", "4", "--torch_device", "cpu"]  # the host EM: quick to trace
+    assert cli.main(_argv(fix, str(tmp_path / "plain"), *argv)) == 0
+    assert not trace.exists()
+    monkeypatch.setenv("COLATE_TPU_TRACE", str(trace))
+    assert cli.main(_argv(fix, str(tmp_path / "traced"), *argv)) == 0
+    capsys.readouterr()
+    files = os.listdir(trace)
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+    import json
+
+    with open(trace / files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert isinstance(events, list)
+    assert filecmp.cmp(str(tmp_path / "plain.coal"), str(tmp_path / "traced.coal"), shallow=False)

@@ -143,3 +143,22 @@ def test_smoke_bin_ops_counts_the_non_zero_terms(smoke, case):
             if sum(ov) > 0:
                 want += smoke.BIN_OPS_REG * sum(x > 0 for x in ov)
     assert smoke.bin_ops(sites, age) == want
+
+
+@pytest.mark.parametrize("module, loaded", [("colate_tpu_torch", False), ("torch", True)])
+def test_smoke_launcher_reports_torch_imports(smoke, module, loaded):
+    """Phases 19 and 21 time a process from the wait4 launcher, which reads
+    from the process's last stderr line whether it imported torch."""
+    run = smoke.timed_process([sys.executable, "-c", smoke.IMPORT, module])
+    assert run["torch"] is loaded and run["wall"] > 0 and run["max_rss_mb"] > 0
+
+
+def test_smoke_runs_a_host_mode_without_torch(smoke, tmp_path):
+    from colate_tpu_torch.fixtures import make_fixture
+
+    fix = make_fixture(str(tmp_path), n_per_chrom=300, seed=3)
+    out = str(tmp_path / "printed.txt")
+    run = smoke.timed_process(smoke.mode_process([
+        "--mode", "print_tmp", "--mut", fix["mut_prefix"], "--target_tmp", fix["target"],
+        "--chr", fix["chrfile"], "-o", out]))
+    assert not run["torch"] and os.path.getsize(out) > 0
