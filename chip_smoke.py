@@ -82,12 +82,25 @@ source, started together) and:
      the same NaN pattern, at tools/bench_aux.py's 50,000 trees x 20
      haplotypes, and their distance at 2,000 trees x 200 haplotypes;
      ``print_tmp`` (every printed site a ``.mut`` row), ``compare_tmp``
-     and ``count_topo`` (a third stream) on the north-star streams.
+     and ``count_topo`` (a third stream) on the north-star streams;
+22.  (after 21) the JAX package's library surface on phase 12's
+     chromosome 1 cut to 3,000 trees of 200 haplotypes: the trees written
+     as plain Newick, RENT+ (Ne 2e4) and ARGweaver SMC (permuted leaf and
+     internal labels) and imported (each internal node's leaf set the
+     source's, node ages within 1e-5), each written as ``.anc``; the
+     ``.trees`` round trip (``anc_to_tables``, ``write_trees_file``,
+     ``read_trees_file``, ``tables_to_anc``); mode ``tree`` through the
+     CLI on the SMC- and Newick-imported ``.anc`` on the card against
+     ``--torch_device cpu`` (as phase 12); ``e_step_sampled`` in float64
+     on the card, 185 age bins x 1,024 draws x 23 epochs, within 1e-12 of
+     the CPU's point E-step at its ages, bitwise equal for two generators
+     of one seed; branch association on 200 trees, the tree E-step,
+     ``e_step_interval`` and ``annotate_ages`` timed.
 
 Prints the measured times, one JSON line about the host modes of phase
-21, one about the tree estimators' device programs (plain torch, not
-kernels), one about the kernels, and as its last line ``{"ok": true,
-"device": {...}}``.  Any failed check raises; the script exits non-zero
+21, one about the library surface of phase 22, one about the tree
+estimators' device programs (plain torch, not kernels), one about the
+kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises; the script exits non-zero
 without a result when torch sees no CUDA device, and it imports nothing
 of JAX or of the JAX package (the fixtures come from
 colate_tpu_torch/fixtures.py).
@@ -134,6 +147,16 @@ N_BAM_READS = 2_000_000  # tools/bench_bam_stream.py's scale, bench.py:700-702
 # thousand trees, so there it runs on a cut input and is only read
 CC_GATE = (50_000, 20)
 CC_WIDTH_TREES = 2_000
+# the library surface (phase 22): the importers and tables_to_anc grow
+# faster than the tree count (tables_to_anc scans every edge a tree), so
+# phase 12's trees are cut to 3,000 at their full 200 haplotypes; RENT+
+# branch lengths in coalescent units of an Ne of 2e4; the sampled E-step
+# draws 1,024 ages in each of the 185 age bins; branch association runs on
+# 200 trees (199 adjacent pairs)
+N_IMPORT_TREES = 3000
+RENT_NE = 2e4
+N_DRAWS = 1024
+N_ASSOC_TREES = 200
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
 # outside the tensor cores, and HBM3
@@ -634,10 +657,8 @@ def tree_cli_phases(tmp: str, anc, mut, coords, smi: str) -> dict:
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
 
-    from colate_tpu_torch import cli
     from colate_tpu_torch.fixtures import tree_chromosome, write_anc, write_segment_poplabels
     from colate_tpu_torch.formats.anc import AncFile, node_ages
-    from colate_tpu_torch.ops import la_kernel, tree_kernel
 
     prefix = os.path.join(tmp, "trees")
     t0 = time.perf_counter()
@@ -661,17 +682,33 @@ def tree_cli_phases(tmp: str, anc, mut, coords, smi: str) -> dict:
     back = node_ages(AncFile.read(f"{prefix}_chr1.anc", columns="tree"))
     check(np.array_equal(back, coords), "phase 10 ran on the node ages of the parsed .anc")
     out = {}
-    modes = {
-        "tree": (["--mode", "tree"], "tree_done", tree_kernel, "device-sorted:cuda"),
-        "local_ancestry": (["--mode", "local_ancestry", "--poplabels", seg], "la_done", la_kernel,
-                           "device:cuda"),
-    }
+    for mode, flags in (("tree", []), ("local_ancestry", ["--poplabels", seg])):
+        out.update(tree_mode_runs(mode, flags + ["-i", prefix, "--chr", chrfile], mode, tmp, smi))
+    out["input"] = dict(prefix=prefix, chrfile=chrfile)
+    return out
+
+
+def tree_mode_runs(mode: str, argv: list[str], name: str, tmp: str, smi: str) -> dict:
+    """Mode tree or local_ancestry through the CLI (--bins TREE_BINS, four
+    bootstraps) on argv's input: on the CPU, then twice on the card (cold,
+    warm), each run's device program on the card, its rates within 1e-5 of
+    the CPU's with the same NaN pattern.  Returns each run's wall, route,
+    program runs and stage timings, keyed ``<name>_<cpu|cold|warm>``."""
+    import numpy as np
+
+    from colate_tpu_torch import cli
+    from colate_tpu_torch.ops import la_kernel, tree_kernel
+
+    done_event, module, card_route = {
+        "tree": ("tree_done", tree_kernel, "device-sorted:cuda"),
+        "local_ancestry": ("la_done", la_kernel, "device:cuda"),
+    }[mode]
+    argv = ["--mode", mode, *argv, "--bins", TREE_BINS, "--num_bootstraps", "4"]
+    out, rates = {}, {}
     os.environ["COLATE_TPU_LOG"] = "json"
-    for mode, (flags, done_event, module, card_route) in modes.items():
-        argv = flags + ["-i", prefix, "--chr", chrfile, "--bins", TREE_BINS, "--num_bootstraps", "4"]
-        rates = {}
+    try:
         for phase in ("cpu", "cold", "warm"):
-            out_prefix = os.path.join(tmp, f"{mode}_{phase}")
+            out_prefix = os.path.join(tmp, f"{name}_{phase}")
             log = io.StringIO()
             module.program_runs = 0
             t0 = time.perf_counter()
@@ -680,33 +717,34 @@ def tree_cli_phases(tmp: str, anc, mut, coords, smi: str) -> dict:
                                       "cpu" if phase == "cpu" else "cuda"])
             wall = time.perf_counter() - t0
             runs = module.program_runs
-            check(rc == 0, f"mode {mode} {phase} exits 0 (got {rc}): {log.getvalue()[-2000:]}")
+            check(rc == 0, f"{name} {phase} exits 0 (got {rc}): {log.getvalue()[-2000:]}")
             ev = [json.loads(x) for x in log.getvalue().splitlines() if x.startswith('{"event": "' + done_event)]
-            check(len(ev) == 1, f"mode {mode} {phase} logged {done_event}")
+            check(len(ev) == 1, f"{name} {phase} logged {done_event}")
             route = ev[0]["route"]
             if phase == "cpu":
-                check("cuda" not in route and runs == 0, f"mode {mode} on the CPU took a host route ({route})")
+                check("cuda" not in route and runs == 0, f"{name} on the CPU took a host route ({route})")
             else:
                 check(route == card_route and runs > 0,
-                      f"mode {mode} {phase} ran its device program on the card ({route}, {runs} runs)")
+                      f"{name} {phase} ran its device program on the card ({route}, {runs} runs)")
             rates[phase] = read_coal_rates(out_prefix + ".coal")
             st = ev[0]["timings"]
-            out[f"{mode}_{phase}"] = dict(wall=wall, route=route, program_runs=runs, timings=st)
-            print(f"mode {mode} --torch_device {'cpu' if phase == 'cpu' else 'cuda'} ({phase}): wall "
+            out[f"{name}_{phase}"] = dict(wall=wall, route=route, program_runs=runs, timings=st)
+            print(f"{name} --torch_device {'cpu' if phase == 'cpu' else 'cuda'} ({phase}): wall "
                   f"{wall:.4f} s; " + ", ".join(f"{k} {v:.4f} s" for k, v in st.items())
                   + f"; route {route}, {runs} program runs [{smi}]", flush=True)
-        ref = rates["cpu"]
-        for phase in ("cold", "warm"):
-            r = rates[phase]
-            check(r.shape == ref.shape and np.array_equal(np.isnan(r), np.isnan(ref)),
-                  f"mode {mode} {phase}: shape and NaN pattern of the CPU run")
-            ok = np.isfinite(ref)
-            rel = rel_err(r[ok], ref[ok])
-            check(ok.sum() > 10 and rel <= 1e-5, f"mode {mode} {phase}: rates within 1e-5 ({rel:.3e})")
-            print(f"mode {mode} {phase}: .coal {r.shape}, {int(ok.sum())} finite rates, max rel vs "
-                  f"--torch_device cpu {rel:.3e} (<= 1e-5), NaN pattern equal", flush=True)
-    del os.environ["COLATE_TPU_LOG"]
-    out["input"] = dict(prefix=prefix, chrfile=chrfile)
+    finally:
+        del os.environ["COLATE_TPU_LOG"]
+    ref = rates["cpu"]
+    for phase in ("cold", "warm"):
+        r = rates[phase]
+        check(r.shape == ref.shape and np.array_equal(np.isnan(r), np.isnan(ref)),
+              f"{name} {phase}: shape and NaN pattern of the CPU run")
+        ok = np.isfinite(ref)
+        rel = rel_err(r[ok], ref[ok])
+        check(ok.sum() > 10 and rel <= 1e-5, f"{name} {phase}: rates within 1e-5 ({rel:.3e})")
+        out[f"{name}_{phase}"]["max_rel_vs_cpu"] = rel
+        print(f"{name} {phase}: .coal {r.shape}, {int(ok.sum())} finite rates, max rel vs "
+              f"--torch_device cpu {rel:.3e} (<= 1e-5), NaN pattern equal", flush=True)
     return out
 
 
@@ -1269,6 +1307,242 @@ def host_modes_phase(fix: dict, trees: dict, tmp: str, smi: str) -> dict:
     return runs
 
 
+def clades(anc):
+    """Each internal node's leaf set (N-bit masks in uint64 words) and its
+    age summed from the branch lengths in float64, ordered by leaf set in
+    each tree: ([T, N-1, W] words, [T, N-1] ages).  Two files of the same
+    trees under other internal labels give equal arrays."""
+    import numpy as np
+
+    T, M = anc.parent.shape
+    N = anc.n_hap
+    W = (N + 63) // 64
+    rows = np.arange(T)[:, None]
+    par = np.asarray(anc.parent, np.int64)
+    # the two children of internal node N + i sit at 2i, 2i+1 once sorted by parent
+    kids = np.argsort(np.where(par < 0, M, par), axis=1, kind="stable")[:, : M - 1]
+    c0, c1 = kids[:, 0::2], kids[:, 1::2]
+    check(bool((par[rows, c0] == np.arange(N, M)).all() and (par[rows, c1] == np.arange(N, M)).all()),
+          "binary trees, internal labels N..2N-2")
+    bits = np.zeros((T, M, W), np.uint64)
+    leaf = np.arange(N)
+    bits[:, leaf, leaf // 64] = np.left_shift(np.uint64(1), (leaf % 64).astype(np.uint64))
+    age = np.zeros((T, M))
+    bl = np.asarray(anc.branch_length, np.float64)
+    for _ in range(M):
+        nb = bits[rows, c0] | bits[rows, c1]
+        na = np.maximum(age[rows, c0] + bl[rows, c0], age[rows, c1] + bl[rows, c1])
+        if np.array_equal(nb, bits[:, N:]) and np.array_equal(na, age[:, N:]):
+            break
+        bits[:, N:], age[:, N:] = nb, na
+    order = np.lexsort([bits[:, N:, w] for w in range(W)], axis=-1)
+    return (np.take_along_axis(bits[:, N:], order[..., None], 1),
+            np.take_along_axis(age[:, N:], order, 1))
+
+
+def head_trees(anc, mut, T: int):
+    """The first T trees of anc and the .mut rows on them (a row's branch
+    list and strings as Python lists)."""
+    import dataclasses
+
+    import numpy as np
+
+    n = int(np.searchsorted(mut.tree, T))
+    cut = lambda v, k: v[:k] if isinstance(v, np.ndarray) else [v[i] for i in range(k)]
+    a = dataclasses.replace(anc, **{f: cut(getattr(anc, f), T) for f in (
+        "start_pos", "parent", "branch_length", "num_events", "snp_begin", "snp_end")})
+    m = dataclasses.replace(mut, **{f.name: cut(getattr(mut, f.name), n)
+                                    for f in dataclasses.fields(mut)
+                                    if f.name != "header" and getattr(mut, f.name) is not None})
+    return a, m
+
+
+def library_phase(trees: dict, tmp: str, dev, smi: str) -> dict:
+    """Phase 22: the JAX package's library surface in the port, on phase
+    12's chromosome 1 cut to N_IMPORT_TREES trees of 200 haplotypes.
+    (a) the trees written as Newick, RENT+ and ARGweaver SMC (permuted
+    labels) and imported: every internal node's leaf set the source's, its
+    age and the sorted node ages per tree within 1e-5 (f32 branch lengths);
+    (b) anc_to_tables, write_trees_file, read_trees_file, tables_to_anc:
+    the same trees back; (c) mode tree through the CLI on the SMC- and
+    Newick-imported .anc (tree_mode_runs); (d) e_step_sampled on the card
+    in float64 against the point E-step on the CPU at its ages, two
+    generators of one seed bitwise equal; (e) branch association, the tree
+    E-step, e_step_interval and annotate_ages timed.  Returns the times."""
+    import numpy as np
+    import torch
+
+    from colate_tpu_torch.config import INITIAL_COAL_RATE, age_bin_edges
+    from colate_tpu_torch.fixtures import write_genealogy
+    from colate_tpu_torch.formats import anc as anc_mod
+    from colate_tpu_torch.formats.branch_assoc import associate_equivalent_branches
+    from colate_tpu_torch.formats.mut import MutTable, annotate_ages
+    from colate_tpu_torch.formats.trees import (
+        anc_to_tables, read_trees_file, tables_to_anc, write_trees_file,
+    )
+    from colate_tpu_torch.ops.em import e_step_all_bins, e_step_interval, e_step_sampled
+    from colate_tpu_torch.ops.em_tree import em_tree_notshared, em_tree_shared, grid_and_epoch_index
+    from colate_tpu_torch.ops.epochs import epochs_from_bins
+
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        out[name] = time.perf_counter() - t0
+        return r
+
+    full_anc = timed("read_anc_60000", lambda: anc_mod.AncFile.read(trees["prefix"] + "_chr1.anc"))
+    full_mut = MutTable.read(trees["prefix"] + "_chr1.mut")
+    src, mut = head_trees(full_anc, full_mut, N_IMPORT_TREES)
+    T, N = src.num_trees, src.n_hap
+    ref_keys, ref_ages = clades(src)
+    ref_sorted = np.sort(anc_mod.node_ages(src)[:, N:], 1).astype(np.float64)
+    print(f"library surface: {T} trees x {N} haplotypes of phase 12's chromosome 1, "
+          f"{len(mut)} .mut rows", flush=True)
+
+    # ---- 22a. the importers ----
+    chrfile = os.path.join(tmp, "imp_chr.txt")
+    with open(chrfile, "w") as fh:
+        fh.write("1\n")
+    readers = {"newick": (anc_mod.read_newick_trees, (1.0,)),
+               "rent": (anc_mod.read_rent, (RENT_NE,)),
+               "smc": (anc_mod.read_argweaver_smc, ())}
+    for fmt, (reader, args) in readers.items():
+        path = os.path.join(tmp, f"imp.{fmt}")
+        timed(f"{fmt}_write", lambda: write_genealogy(path, src, fmt, ne=RENT_NE, seed=22))
+        got = timed(f"{fmt}_import", lambda: reader(path, *args))
+        check(got.num_trees == T and np.array_equal(got.start_pos, src.start_pos),
+              f"{fmt}: {got.num_trees} trees imported at the source's start SNPs")
+        ordered = bool(np.all((got.parent > np.arange(2 * N - 1)) | (got.parent < 0)))
+        check(ordered == (fmt != "smc"), f"{fmt}: parents numbered after children: {ordered}")
+        keys, ages = clades(got)
+        check(np.array_equal(keys, ref_keys), f"{fmt}: every internal node's leaf set is the source's")
+        rel_clade = rel_err(ages, ref_ages)
+        coords = timed(f"{fmt}_node_ages", lambda: anc_mod.node_ages(got))
+        rel_sorted = rel_err(np.sort(coords[:, N:], 1).astype(np.float64), ref_sorted)
+        check(rel_clade <= 1e-5 and rel_sorted <= 1e-5,
+              f"{fmt}: node ages within 1e-5 of the source's ({rel_clade:.3e}, {rel_sorted:.3e})")
+        prefix = os.path.join(tmp, f"imp_{fmt}")
+        timed(f"{fmt}_anc_write", lambda: got.write(prefix + "_chr1.anc"))
+        mut.write(prefix + "_chr1.mut")
+        out[f"{fmt}_max_rel_age"] = max(rel_clade, rel_sorted)
+        print(f"import {fmt}: {os.path.getsize(path)} bytes written in {out[fmt + '_write']:.4f} s, "
+              f"imported in {out[fmt + '_import']:.4f} s; node_ages "
+              f"({'native pass' if ordered else 'walk per tree'}) {out[fmt + '_node_ages']:.4f} s; "
+              f"AncFile.write {out[fmt + '_anc_write']:.4f} s; leaf sets equal, ages max rel "
+              f"{rel_clade:.3e} by leaf set, {rel_sorted:.3e} sorted (<= 1e-5) [{smi}]", flush=True)
+
+    # ---- 22b. the .trees round trip ----
+    tb = timed("anc_to_tables", lambda: anc_to_tables(src, mut))
+    path = os.path.join(tmp, "imp.trees")
+    timed("write_trees_file", lambda: write_trees_file(tb, path))
+    back = timed("read_trees_file", lambda: read_trees_file(path))
+    check(np.array_equal(back.node_time, tb.node_time) and back.edge_left.size == tb.edge_left.size
+          and np.array_equal(back.mut_node, tb.mut_node), ".trees: nodes, edges, mutations read back")
+    rt = timed("tables_to_anc", lambda: tables_to_anc(back, N))
+    keys, ages = clades(rt)
+    rel = rel_err(ages, ref_ages)
+    check(rt.num_trees == T and np.array_equal(keys, ref_keys) and rel <= 1e-5,
+          f".trees round trip: the source's trees and ages ({rel:.3e})")
+    out["trees_max_rel_age"] = rel
+    print(f".trees round trip: anc_to_tables {out['anc_to_tables']:.4f} s ({tb.edge_left.size} edges, "
+          f"{tb.site_pos.size} sites), write_trees_file {out['write_trees_file']:.4f} s "
+          f"({os.path.getsize(path)} bytes), read_trees_file {out['read_trees_file']:.4f} s, "
+          f"tables_to_anc {out['tables_to_anc']:.4f} s; parents (by leaf set) equal, ages max rel "
+          f"{rel:.3e} [{smi}]", flush=True)
+
+    # ---- 22c. mode tree on the imported genealogies ----
+    for fmt in ("smc", "newick"):
+        argv = ["-i", os.path.join(tmp, f"imp_{fmt}"), "--chr", chrfile]
+        out.update(tree_mode_runs("tree", argv, f"tree_on_{fmt}", tmp, smi))
+
+    # ---- 22d. the sampled E-step on the card ----
+    epochs_np = epochs_from_bins(BINS, 28.0, 0.0)[0]
+    E = epochs_np.shape[0]
+    rates_np = INITIAL_COAL_RATE * np.exp(np.random.default_rng(31).uniform(-2.0, 2.0, E))
+    edges = age_bin_edges()
+    a_np, b_np = np.tile(edges[:-1], N_DRAWS), np.tile(edges[1:], N_DRAWS)
+    epochs, rates, a, b = (torch.as_tensor(x, device=dev) for x in (epochs_np, rates_np, a_np, b_np))
+    draw = lambda seed: e_step_sampled(epochs, rates, torch.Generator(device=dev).manual_seed(seed),
+                                       a, b)
+    first, again = draw(5), draw(5)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(first, again)),
+          "e_step_sampled: two generators of one seed, bitwise equal outputs")
+    t = first[-1]
+    check(bool(((t >= a) & (t <= b)).all()), "e_step_sampled: every age in its interval")
+    t_cpu = t.cpu()
+    ep_cpu = torch.from_numpy(epochs_np)
+    k = torch.clamp(torch.searchsorted(ep_cpu, t_cpu, right=True) - 1, 0, E - 1)
+    t0 = time.perf_counter()
+    ref = e_step_all_bins(ep_cpu, torch.from_numpy(rates_np)[None], t_cpu, k)
+    out["e_step_sampled_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+    pairs = [(x.cpu().numpy(), y[0].numpy()) for x, y in zip(first[:-1], ref)]
+    norm_err = max(float(np.abs(x - y).max() / np.abs(y).max()) for x, y in pairs)
+    check(all(np.isfinite(x).all() for x, _ in pairs) and norm_err <= 1e-12,
+          f"e_step_sampled on the card within 1e-12 of the CPU's point E-step ({norm_err:.3e})")
+    # elementwise, where both sides are nonzero; an exposure that cancels to
+    # about 0 is clamped at 0 on one side and not the other
+    elem_err = max(float((np.abs(x - y)[m] / np.abs(y[m])).max(initial=0.0))
+                   for x, y in pairs for m in [(x != 0) & (y != 0)])
+    one_zero = [((x == 0) != (y == 0), x - y) for x, y in pairs]
+    n_one_zero = sum(int(m.sum()) for m, _ in one_zero)
+    one_zero_max = max(float(np.abs(d[m]).max(initial=0.0)) for m, d in one_zero)
+    out["e_step_sampled_ms"] = cuda_ms(lambda: draw(5), 5)
+    out.update(e_step_sampled_norm_err=norm_err, e_step_sampled_elem_rel_err=elem_err,
+               e_step_sampled_zero_on_one_side=n_one_zero)
+    print(f"e_step_sampled, float64, {t.numel()} ages (185 bins x {N_DRAWS}) x {E} epochs: "
+          f"{out['e_step_sampled_ms']:.4f} ms on the card (CUDA events), the point E-step on the "
+          f"CPU {out['e_step_sampled_cpu_ms']:.4f} ms; max |diff| / max |CPU| {norm_err:.3e} "
+          f"(<= 1e-12), elementwise max rel {elem_err:.3e} where both are nonzero, "
+          f"{n_one_zero} entries 0 on one side only (largest {one_zero_max:.3e}); ages in their "
+          f"intervals, two generators of one seed bitwise equal [{smi}]", flush=True)
+    del first, again, ref
+
+    # ---- 22e. host functions ----
+    chain, _ = head_trees(full_anc, full_mut, N_ASSOC_TREES)
+    chain.num_events = chain.num_events.copy()
+    chain.snp_begin, chain.snp_end = chain.snp_begin.copy(), chain.snp_end.copy()
+    maps = timed("associate_equivalent_branches", lambda: associate_equivalent_branches(chain))
+    paired = float(np.mean([(m != -1).mean() for m in maps]))
+    check(len(maps) == N_ASSOC_TREES - 1, "branch association: a map a pair of adjacent trees")
+    tepochs = np.asarray(epochs_from_bins(TREE_BINS, 28.0, 0.0)[0])
+    grid, _ = grid_and_epoch_index(tepochs)
+    coords = anc_mod.node_ages(chain)
+    up = np.take_along_axis(coords, np.maximum(chain.parent, 0), 1)
+    # lineages of each tree at each grid edge, and a DAF that falls with age
+    lins = [((coords[i] <= grid[:, None]) & ((chain.parent[i] < 0) | (up[i] > grid[:, None])))
+            .sum(1).astype(np.float32) for i in range(N_ASSOC_TREES)]
+    daf = np.clip(1.0 - np.arange(grid.size) / 120.0, 0.0, 1.0).astype(np.float32)
+    tr = np.full(tepochs.size, INITIAL_COAL_RATE)
+    a_age, b_age = grid[60], grid[90]
+
+    def tree_steps():
+        res = [(em_tree_shared(tepochs, tr, k, daf, a_age, b_age),
+                em_tree_notshared(tepochs, tr, k, daf, a_age, b_age)) for k in lins]
+        check(all(np.isfinite(s[0]).all() and np.isfinite(n[1]).all() for s, n in res),
+              "the tree E-step: finite sums")
+
+    timed("em_tree_200_trees", tree_steps)
+    interval = timed("e_step_interval", lambda: e_step_interval(epochs_np, rates_np, edges[:-1],
+                                                                edges[1:]))
+    check(all(np.isfinite(x).all() for x in interval), "e_step_interval: finite")
+    full_coords = anc_mod.node_ages(full_anc)
+    timed("annotate_ages", lambda: annotate_ages(full_mut, full_anc))
+    br = np.array([b[0] for b in full_mut.branch])
+    c = full_coords[full_mut.tree, br].astype(np.float64)
+    check(bool(np.all(np.abs(full_mut.age_begin - c) <= 1e-5 * c + 1e-3)),
+          "annotate_ages: each row's age_begin its node's age")
+    print(f"branch association, {N_ASSOC_TREES} trees x {N} haplotypes: "
+          f"{out['associate_equivalent_branches']:.4f} s, {paired:.4f} of branches paired; the tree "
+          f"E-step (shared and notshared, {len(lins)} trees' lineage counts) "
+          f"{out['em_tree_200_trees']:.4f} s; e_step_interval, 185 intervals x {E} epochs "
+          f"{out['e_step_interval']:.4f} s; annotate_ages on {len(full_mut)} rows of "
+          f"{full_anc.num_trees} trees {out['annotate_ages']:.4f} s [{smi}]", flush=True)
+    return out
+
+
 def bcf_bam_parity_phase(tmp: str, smi: str) -> None:
     """Phase 20: --sampling mc_parity --em_dtype float64 at 8 replicates on
     a small fixture (tests/test_mut_bam.py's scale), --target_bcf alone
@@ -1732,6 +2006,9 @@ def main(argv: list[str] | None = None) -> int:
 
         # ---- 21. the last host modes, as processes, without torch ----
         print(json.dumps({"host_modes": host_modes_phase(fix, trees, tmp, smi)}), flush=True)
+
+        # ---- 22. the library surface: importers, .trees, E-steps ----
+        print(json.dumps({"library_surface": library_phase(trees, tmp, dev, smi)}), flush=True)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "colate_tpu"))
     check(not loaded, f"the port ran without JAX and without colate_tpu (loaded: {loaded})")

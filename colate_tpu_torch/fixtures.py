@@ -14,8 +14,10 @@ no JAX, nothing of colate_tpu.
   tests/helpers/synth_anc.py); :func:`random_trees` and
   :func:`tree_chromosome` make a chromosome of Kingman trees at a
   realistic scale in memory (tools/bench_tree.py's generator),
-  :func:`write_anc` writes it fast, and :func:`write_segment_poplabels`
-  writes segment-format ancestry labels (tools/bench_aux.py's layout).
+  :func:`write_anc` writes it fast, :func:`write_segment_poplabels`
+  writes segment-format ancestry labels (tools/bench_aux.py's layout), and
+  :func:`write_genealogy` writes trees in the formats of other inference
+  tools (Newick, RENT+, ARGweaver SMC) for the importers of formats/anc.py.
 - BCF and BAM inputs of mode ``mut``: copies of the JAX package's test
   generators (:func:`make_ref_genome`, :func:`make_vcf_for_mut`,
   :func:`vcf_text_to_bcf2`, :func:`make_bam`) and of
@@ -27,6 +29,7 @@ no JAX, nothing of colate_tpu.
 
 from __future__ import annotations
 
+import gzip
 import os
 import struct
 import zlib
@@ -480,6 +483,77 @@ def write_anc(path: str, anc: AncFile, trees_per_pass: int = 2000) -> None:
                 np.full((n, 1), ord("\n"), np.uint8),
             ], axis=1)
             fh.write(line[line != 0].tobytes())
+
+
+def write_genealogy(path: str, anc: AncFile, fmt: str, ne: float = 1.0, seed: int = 0) -> None:
+    """Write the trees of ``anc`` as another inference tool does, one line
+    a tree, for the importers of formats/anc.py (gzip when ``path`` ends
+    in ``.gz``); each child written in index order, branch lengths ``%.9g``:
+
+    - ``"newick"``: ``<start_snp> <newick>;``, 0-based leaf labels
+      (``read_newick_trees``);
+    - ``"rent"``: ``<start_snp> <newick>``, 1-based leaf labels, branch
+      lengths divided by ``ne`` (``read_rent(path, ne)``);
+    - ``"smc"``: ARGweaver's layout (``read_argweaver_smc``): a ``NAMES``
+      header of the 1-based haplotype of each newick leaf id (a random
+      permutation), a ``REGION`` line, then ``TREE <start> <end>
+      <newick>;`` with ``[&&NHX:age=...]`` annotations and each internal
+      node labelled after its ``)`` by a random permutation of N..2N-2,
+      drawn from ``seed`` tree by tree, so the root is rarely 2N-2.
+    """
+    if fmt not in ("newick", "rent", "smc"):
+        raise ValueError(f"unknown genealogy format {fmt!r}")
+    g = np.random.default_rng(seed)
+    T, M = anc.parent.shape
+    N = anc.n_hap
+    if fmt == "smc":
+        names = g.permutation(N) + 1
+        leaf = np.empty(N, np.int64)
+        leaf[names - 1] = np.arange(N)  # the newick leaf id of each haplotype
+    else:
+        leaf = np.arange(N) + (fmt == "rent")
+    scale = 1.0 / ne if fmt == "rent" else 1.0
+    lines = []
+    if fmt == "smc":
+        lines.append("NAMES\t" + "\t".join(map(str, names)) + "\n")
+        lines.append(f"REGION\tchr\t1\t{int(anc.start_pos[-1]) + 1}\n")
+    for t in range(T):
+        par = anc.parent[t].tolist()
+        bl = (np.asarray(anc.branch_length[t], np.float64) * scale).tolist()
+        label = (g.permutation(N - 1) + N).tolist() if fmt == "smc" else None
+        kids = [[] for _ in range(M)]
+        root = -1
+        for j, p in enumerate(par):
+            if p >= 0:
+                kids[p].append(j)
+            else:
+                root = j
+        order, stack = [], [root]
+        while stack:
+            u = stack.pop()
+            order.append(u)
+            stack.extend(kids[u])
+        text = [""] * M
+        age = [0.0] * M
+        for u in reversed(order):
+            if u < N:
+                text[u] = str(int(leaf[u]))
+                continue
+            parts = []
+            for c in kids[u]:
+                age[u] = max(age[u], age[c] + bl[c])
+                nhx = f"[&&NHX:age={age[c]:.9g}]" if fmt == "smc" else ""
+                parts.append(f"{text[c]}:{bl[c]:.9g}{nhx}")
+            text[u] = "(" + ",".join(parts) + ")" + (str(label[u - N]) if label else "")
+        pos = int(anc.start_pos[t])
+        if fmt == "smc":
+            end = int(anc.start_pos[t + 1]) - 1 if t + 1 < T else pos
+            lines.append(f"TREE\t{pos}\t{end}\t{text[root]}[&&NHX:age={age[root]:.9g}];\n")
+        else:
+            lines.append(f"{pos} {text[root]}{';' if fmt == 'newick' else ''}\n")
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wt") as fh:
+        fh.writelines(lines)
 
 
 def write_segment_poplabels(path: str, chroms, maxpos, n_hap: int, n_segments: int,

@@ -11,16 +11,19 @@ Each tree line holds 2N-1 node records in node-index order (leaves
 a file share N, so the whole file loads into dense [num_trees, 2N-1]
 arrays, the layout of the batched populate and local-ancestry programs.
 
-Copied from colate_tpu/formats/anc.py (``AncFile.read``/``write`` and
-``node_ages``) with the native reader only: a failed native read raises,
-naming the path; there is no Python parser to fall back to.  The Newick,
-ARGweaver and RENT+ importers are not copied: no mode calls them.
+Copied from colate_tpu/formats/anc.py (``AncFile.read``/``write``,
+``node_ages`` and the Newick, ARGweaver SMC and RENT+ importers) with the
+native reader only: a failed native read raises, naming the path; there
+is no Python parser to fall back to.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gzip
+import os
+import re
 
 import numpy as np
 
@@ -106,6 +109,179 @@ class AncFile:
                         f"{self.snp_end[t, j]})"
                     )
                 fh.write(" ".join(parts) + " \n")
+
+
+_CHERRY = re.compile(
+    r"\(([^(),:]+):([^(),]+),([^(),:]+):([^(),]+)\)"
+)
+
+
+def _reduce_newick(newick: str, edges: dict, label_of, next_internal: int | None):
+    """Cherry-reduction of a binary newick string (the reference's
+    importer strategy, anc.cpp:798-864/1130-1198): repeatedly replace the
+    leftmost innermost ``(c1:b1,c2:b2)`` pair.
+
+    With ``next_internal`` given (RENT/plain newick), each reduction is
+    assigned the next internal id and the pair is replaced by its label;
+    otherwise (ARGweaver SMC) the parent's explicit label follows the
+    closing bracket and the pair is simply deleted.  Returns the number
+    of internal nodes created / consumed.
+    """
+    made = 0
+    while True:
+        m = _CHERRY.search(newick)
+        if m is None:
+            break
+        c1, b1, c2, b2 = m.group(1), m.group(2), m.group(3), m.group(4)
+        if next_internal is None:
+            # parent label written after ')' like "(...)P:bl" or "(...)P"
+            rest = newick[m.end():]
+            lm = re.match(r"([^(),:\[]+)", rest)
+            if lm is None:
+                raise ValueError(f"no parent label after cherry: {rest[:40]}")
+            parent_label = lm.group(1)
+            replacement = ""
+        else:
+            parent_label = str(next_internal + made)
+            replacement = parent_label
+        p = label_of(parent_label)
+        edges[label_of(c1)] = (p, float(np.float32(float(b1))))
+        edges[label_of(c2)] = (p, float(np.float32(float(b2))))
+        made += 1
+        newick = newick[: m.start()] + replacement + newick[m.end():]
+    return made
+
+
+def _edges_to_ancfile(per_tree: list[tuple[int, dict]], n_hap: int) -> AncFile:
+    """Assemble (pos, {child: (parent, blen)}) per tree into an AncFile,
+    relabelling so the root is node 2N-2 (the reference's root fix,
+    anc.cpp:869-930)."""
+    n_nodes = 2 * n_hap - 1
+    T = len(per_tree)
+    start_pos = np.empty(T, np.int64)
+    parent = np.full((T, n_nodes), -1, np.int32)
+    blen = np.zeros((T, n_nodes), np.float64)
+    for t, (pos, edges) in enumerate(per_tree):
+        start_pos[t] = pos
+        par = np.full(n_nodes, -1, np.int64)
+        bl = np.zeros(n_nodes)
+        for c, (p, b) in edges.items():
+            par[c] = p
+            bl[c] = b
+        root = int(np.nonzero(par < 0)[0][0])
+        if root != n_nodes - 1:
+            perm = np.arange(n_nodes)
+            perm[root], perm[n_nodes - 1] = n_nodes - 1, root
+            new_par = np.full(n_nodes, -1, np.int64)
+            new_bl = np.zeros(n_nodes)
+            for j in range(n_nodes):
+                if par[j] >= 0:
+                    new_par[perm[j]] = perm[par[j]]
+                    new_bl[perm[j]] = bl[j]
+            par, bl = new_par, new_bl
+        parent[t] = par
+        blen[t] = bl
+    return AncFile(
+        n_hap=n_hap,
+        sample_ages=None,
+        start_pos=start_pos,
+        parent=parent,
+        branch_length=blen,
+        num_events=np.zeros((T, n_nodes), np.float32),
+        snp_begin=np.zeros((T, n_nodes), np.int32),
+        snp_end=np.zeros((T, n_nodes), np.int32),
+    )
+
+
+def _open_text(path: str):
+    if not os.path.exists(path) and os.path.exists(path + ".gz"):
+        path = path + ".gz"
+    try:
+        fh = gzip.open(path, "rt")
+        fh.read(1)
+        fh.seek(0)
+        return fh
+    except (OSError, gzip.BadGzipFile):
+        return open(path, "rt")
+
+
+def read_argweaver_smc(path: str) -> AncFile:
+    """ARGweaver ``.smc`` importer (AncesTree::ReadArgweaverSMC,
+    anc.cpp:751-950): a NAMES header maps newick leaf ids to haplotype
+    indices; every other line is ``TREE <pos> <end> <newick>`` with
+    NHX annotations and explicit internal-node labels."""
+    per_tree: list[tuple[int, dict]] = []
+    with _open_text(path) as fh:
+        header = fh.readline().split()
+        ids = [int(x) for x in header[1:]]
+        n_hap = len(ids)
+
+        # newick node ids are 0-based: leaves map through the NAMES list
+        # (convert_index[i] = NAMES[i]-1, anc.cpp:766-777), internal ids
+        # keep their own index
+        def label_of(s: str) -> int:
+            v = int(s)
+            return ids[v] - 1 if v < n_hap else v
+
+        lines = fh.readlines()
+    tree_lines = [ln for ln in lines if ln.startswith("TREE")]
+    for ln in tree_lines:
+        f = ln.split(None, 3)
+        pos = int(f[1])
+        newick = re.sub(r"\[[^\]]*\]", "", f[3].strip())
+        edges: dict = {}
+        _reduce_newick(newick.rstrip(";"), edges, label_of, None)
+        per_tree.append((pos, edges))
+    return _edges_to_ancfile(per_tree, n_hap)
+
+
+def read_rent(path: str, ne: float) -> AncFile:
+    """RENT+ importer (AncesTree::ReadRent, anc.cpp:952-1090): lines of
+    ``<pos> <newick>`` with 1-based leaf labels and coalescent-unit
+    branch lengths scaled by Ne; malformed trees are dropped."""
+    return _read_pos_newick(path, ne, one_based=True)
+
+
+def read_newick_trees(path: str, ne: float) -> AncFile:
+    """Plain newick importer (AncesTree::ReadNewick, anc.cpp:1092-1229):
+    lines of ``<pos> <newick>`` with 0-based leaf labels."""
+    return _read_pos_newick(path, ne, one_based=False)
+
+
+def _read_pos_newick(path: str, ne: float, one_based: bool) -> AncFile:
+    per_tree: list[tuple[int, dict]] = []
+    n_hap = None
+    with _open_text(path) as fh:
+        for ln in fh:
+            ln = ln.strip()
+            if not ln:
+                continue
+            if n_hap is None:
+                n_hap = ln.count(",") + 1
+            pos_s, newick = ln.split(None, 1)
+            newick = newick.rstrip(";")
+            off = 1 if one_based else 0
+
+            def label_of(s: str, off=off) -> int:
+                return int(s) - off
+
+            edges: dict = {}
+            try:
+                made = _reduce_newick(
+                    newick, edges, label_of, n_hap + (1 if one_based else 0)
+                )
+            except (ValueError, KeyError):
+                continue
+            if made != n_hap - 1 or len(edges) != 2 * n_hap - 2:
+                continue  # non-binary / malformed: dropped like the reference
+            if ne != 1.0:
+                edges = {
+                    c: (p, float(np.float32(b * ne))) for c, (p, b) in edges.items()
+                }
+            per_tree.append((int(pos_s), edges))
+    if n_hap is None:
+        raise ValueError(f"empty tree file: {path}")
+    return _edges_to_ancfile(per_tree, n_hap)
 
 
 def node_ages(anc: AncFile) -> np.ndarray:

@@ -190,6 +190,50 @@ class _FlatBranches:
             yield self[i]
 
 
+def annotate_ages(mut: MutTable, anc) -> None:
+    """Annotate age_begin/age_end from the genealogy — the equivalent of
+    ``Mutations::GetAge`` (src/mutations.cpp:28-54).
+
+    For every row mapping to exactly one branch: age_begin is the node's
+    age measured by descending *left* children summing branch lengths
+    (``ReadTree`` assigns child_left to the lowest-numbered child,
+    src/anc.cpp:6-47), and age_end = age_begin + the node's own branch
+    length.  Rows with 0 or >1 branches are left untouched.  In-place.
+    """
+    T, M = anc.parent.shape
+    rows_t = np.arange(T)
+    # child_left[p] = lowest-numbered child of p (descending loop: the
+    # final write per parent is its lowest child)
+    child_left = np.full((T, M), -1, np.int64)
+    for j in range(M - 1, -1, -1):
+        p = anc.parent[:, j].astype(np.int64)
+        v = p >= 0
+        child_left[rows_t[v], p[v]] = j
+    leftsum = np.zeros((T, M), np.float64)
+    ordered = bool(np.all((anc.parent > np.arange(M)[None, :]) | (anc.parent < 0)))
+    if ordered:
+        # children numbered below parents: one ascending pass
+        for j in range(anc.n_hap, M):
+            cl = child_left[:, j]
+            leftsum[:, j] = leftsum[rows_t, cl] + anc.branch_length[rows_t, cl]
+    else:
+        for t in range(T):
+            for j in range(M):
+                s, c = 0.0, int(child_left[t, j])
+                while c >= 0:
+                    s += float(anc.branch_length[t, c])
+                    c = int(child_left[t, c])
+                leftsum[t, j] = s
+    for i in range(len(mut)):
+        br = mut.branch[i]
+        if len(br) == 1:
+            t = int(mut.tree[i])
+            b = int(br[0])
+            ab = leftsum[t, b]
+            mut.age_begin[i] = ab
+            mut.age_end[i] = ab + float(anc.branch_length[t, b])
+
+
 def _fmt(x: float) -> str:
     """C++ default ostream formatting (6 significant digits)."""
     return f"{x:g}"

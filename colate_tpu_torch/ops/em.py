@@ -1,7 +1,8 @@
 """Batched EM for piecewise-constant coalescence rates, in plain torch.
 
 Port of colate_tpu/ops/em.py (the point-age E-step, the M-step and the
-K-chunked fixed-point loop with per-replicate freezing).  The bootstrap
+K-chunked fixed-point loop with per-replicate freezing; the interval-age
+E-step, host float64 numpy, copied; the Monte-Carlo E-step).  The bootstrap
 batch is a leading dimension written out, where the JAX package vmaps.
 The float64 branch follows the reference expression for expression: the
 byte identity of ``--sampling mc_parity`` runs rests on it.  Also holds
@@ -210,6 +211,161 @@ def e_step_all_bins(epochs, rates, t, k):
     logl_n = torch.where(guard_n, torch.log(torch.where(guard_n, zrel, 1.0)) - H_t, 0.0)
 
     return num_s, den_s, logl_s, num_n, den_n, logl_n
+
+
+def e_step_interval(epochs, rates, age_begin, age_end):
+    """Analytic E-step for *interval* mutation ages t ~ U[a, b].
+
+    The reference's ``EM_shared(age_begin, age_end, ...)`` /
+    ``EM_notshared`` integrate the uniform age prior analytically
+    (coal_EM.cpp:217-231); mode `mut` only ever calls the point-age case
+    (a == b, handled by the vectorised ``e_step_all_bins``), so this
+    host-side f64 implementation exists for API parity and is verified
+    against the exact mpmath oracle (tests/helpers/em_oracle.py).
+
+    epochs [E], rates [E] (all > 0), age_begin/age_end [nb] with
+    age_begin <= age_end.  Returns (num_s, den_s, logl_s, num_n, den_n,
+    logl_n): [nb, E] x2, [nb], [nb, E] x2, [nb] — num = posterior epoch
+    mass, den = conditional epoch exposure E[(min(T,t_{e+1})-t_e)^+],
+    logl = log P(event); all-zero rows where P(event) == 0.
+    """
+    epochs = np.asarray(epochs, np.float64)
+    rates = np.asarray(rates, np.float64)
+    a_arr = np.asarray(age_begin, np.float64)
+    b_arr = np.asarray(age_end, np.float64)
+    E = epochs.shape[0]
+    nb = a_arr.shape[0]
+    out = [np.zeros((nb, E)) for _ in range(4)]
+    logl = [np.zeros(nb), np.zeros(nb)]
+
+    def moments(lam, Hlo, lo, hi):
+        """(I0, I1, I2) of ∫ T^k λ e^{-H(T)} dT over [lo, hi] (hi may be
+        inf), expm1-stabilised like epoch_tables."""
+        S = np.exp(-Hlo)
+        inv = 1.0 / lam
+        if np.isinf(hi):
+            return (
+                S,
+                (lo + inv) * S,
+                (lo * lo + 2 * lo * inv + 2 * inv * inv) * S,
+            )
+        d = hi - lo
+        x = lam * d
+        if x < 1e-4:
+            # Taylor in λ: the closed forms cancel catastrophically here
+            # (terms ~2/λ² against a result ~λd³); truncation O(x^3)
+            i0 = S * lam * d * (1 - x / 2 + x * x / 6)
+            i1 = S * lam * (
+                lo * d + d * d / 2
+                - lam * (lo * d * d / 2 + d**3 / 3)
+                + lam * lam * (lo * d**3 / 6 + d**4 / 8)
+            )
+            i2 = S * lam * (
+                (lo * lo * d + lo * d * d + d**3 / 3)
+                - lam * (lo * lo * d * d / 2 + 2 * lo * d**3 / 3 + d**4 / 4)
+                + lam * lam * (lo * lo * d**3 / 6 + lo * d**4 / 4 + d**5 / 10)
+            )
+            return i0, i1, i2
+        edl = np.exp(-x)
+        em1 = -np.expm1(-x)
+        i0 = S * em1
+        # (lo+inv)S(lo) - (hi+inv)S(hi), grouped so the small-λd
+        # cancellation stays bounded (the x < 1e-4 branch covers the rest)
+        i1 = S * ((lo + inv) * em1 - d * edl)
+        i2 = S * (
+            (lo * lo + 2 * lo * inv + 2 * inv * inv) * em1
+            - d * (lo + hi + 2 * inv) * edl
+        )
+        return i0, i1, i2
+
+    for i in range(nb):
+        a, b = float(a_arr[i]), float(b_arr[i])
+        point = a == b
+        bounds = np.unique(np.concatenate([epochs, [a, b]]))
+        pieces = []  # (lo, hi, epoch k)
+        for j in range(bounds.shape[0] - 1):
+            lo, hi = float(bounds[j]), float(bounds[j + 1])
+            if hi <= lo:
+                continue
+            k = int(np.searchsorted(epochs, lo, side="right") - 1)
+            pieces.append((lo, hi, k))
+        pieces.append((float(bounds[-1]), np.inf, E - 1))
+
+        H = 0.0
+        prev, prev_k = 0.0, 0
+        width = b - a
+        Hs = []
+        for lo, hi, k in pieces:
+            H += rates[prev_k] * (lo - prev)
+            Hs.append(H)
+            prev, prev_k = lo, k
+
+        # hazard at a: notshared mass lives above a, so factoring
+        # e^{-H(a)} out keeps Z representable at extreme hazards (the
+        # point-age path does the same in hazard-relative space; the
+        # reference survives there via log space)
+        H_a = 0.0
+        for (lo, hi, k), Hlo in zip(pieces, Hs):
+            if lo <= a:
+                H_a = Hlo + rates[k] * (a - lo)
+
+        for side, shared in ((0, True), (1, False)):
+            Href = 0.0 if shared else H_a
+            Z = 0.0
+            mass = np.zeros(E)
+            expo = np.zeros(E)
+            for (lo, hi, k), Hlo_abs in zip(pieces, Hs):
+                Hlo = Hlo_abs - Href
+                # w(T) = c0 + c1 T on this piece
+                if point:
+                    inside = (hi <= a) if shared else (lo >= a)
+                    if not inside:
+                        continue
+                    c0, c1 = 1.0, 0.0
+                elif shared:
+                    if lo >= b:
+                        continue
+                    c0, c1 = (1.0, 0.0) if hi <= a else (b / width, -1.0 / width)
+                else:
+                    if hi <= a:
+                        continue
+                    c0, c1 = (1.0, 0.0) if lo >= b else (-a / width, 1.0 / width)
+                i0, i1, i2 = moments(rates[k], Hlo, lo, hi)
+                m = c0 * i0 + c1 * i1
+                Z += m
+                mass[k] += m
+                # exposure: epochs e < k get the full width, e == k the
+                # in-epoch part (T - t_e), e > k nothing
+                if k > 0:
+                    expo[:k] += (epochs[1 : k + 1] - epochs[:k]) * m
+                expo[k] += (c0 * i1 + c1 * i2) - epochs[k] * m
+            if Z > 0:
+                out[2 * side][i] = mass / Z
+                out[2 * side + 1][i] = np.maximum(expo, 0.0) / Z
+                logl[side][i] = np.log(Z) - Href
+
+    return out[0], out[1], logl[0], out[2], out[3], logl[1]
+
+
+def e_step_sampled(epochs, rates, generator, age_begin, age_end):
+    """Monte-Carlo E-step: one uniform age draw per bin, then the
+    point-age E-step (:func:`e_step_all_bins`) at the sampled age
+    (colate_tpu/ops/em.py:e_step_sampled).
+
+    The reference defines this as ``EM_shared_sampled`` /
+    ``EM_notshared_sampled`` (coal/coal_EM.cpp:470-770, max_iter=1) but
+    never calls it from mode `mut`; it is provided for API parity and
+    for MC cross-checks of the analytic binning.  epochs [E], rates [E],
+    age_begin/age_end [nb]: tensors on one device, where it runs; the
+    draws come from ``generator``, a ``torch.Generator`` on that device.
+    Returns the six-tuple of :func:`e_step_all_bins` for one replicate
+    ([nb, E] x2, [nb], [nb, E] x2, [nb]) plus the sampled ages [nb].
+    """
+    u = torch.rand(age_begin.shape, generator=generator, dtype=epochs.dtype,
+                   device=epochs.device)
+    t = age_begin + u * (age_end - age_begin)
+    k = torch.clamp(torch.searchsorted(epochs, t, right=True) - 1, 0, epochs.shape[0] - 1)
+    return tuple(x[0] for x in e_step_all_bins(epochs, rates[None], t, k)) + (t,)
 
 
 def m_step(rates_old, num_tot, den_tot):

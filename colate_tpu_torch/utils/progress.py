@@ -1,6 +1,7 @@
 """Structured progress records and device traces (from
-colate_tpu/utils/progress.py: ``log_event`` copied; ``profile_trace``
-runs ``torch.profiler`` where the JAX package runs ``jax.profiler``).
+colate_tpu/utils/progress.py: ``log_event`` and ``StageTimer`` copied;
+``profile_trace`` runs ``torch.profiler`` where the JAX package runs
+``jax.profiler``).
 
 Every stage of a run reports through one hook that renders either
 human-readable stderr lines (default) or JSON lines (``COLATE_TPU_LOG=json``)
@@ -28,6 +29,41 @@ def log_event(event: str, **fields) -> None:
     else:
         kv = " ".join(f"{k}={v}" for k, v in fields.items())
         print(f"[colate_tpu] {event} {kv}", file=sys.stderr, flush=True)
+
+
+class StageTimer:
+    """Accumulates wall time per pipeline stage.
+
+    >>> st = StageTimer()
+    >>> with st.stage("parse"):
+    ...     ...
+    >>> st.timings["parse"]  # seconds
+    """
+
+    def __init__(self):
+        self.timings: dict[str, float] = {}
+
+    def stage(self, name: str):
+        return _Stage(self, name)
+
+    def report(self, **extra) -> None:
+        log_event("timings", **{**self.timings, **extra})
+
+
+class _Stage:
+    def __init__(self, timer: StageTimer, name: str):
+        self._t = timer
+        self._name = name
+
+    def __enter__(self):
+        self._t0 = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        self._t.timings[self._name] = (
+            self._t.timings.get(self._name, 0.0) + time.time() - self._t0
+        )
+        return False
 
 
 @contextlib.contextmanager

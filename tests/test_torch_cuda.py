@@ -29,7 +29,10 @@ digits) with the same NaN pattern.  The byte-identity routes
 against their single uninterrupted runs: equal bytes, bitwise equal
 histograms and rates.  Mode mut on BCF and BAM inputs: one launch of each
 kernel a run, the ``.colate_mat`` of ``--binning auto`` equal to the
-CPU's, identified rates within 1e-4 of the host f64 EM's.
+CPU's, identified rates within 1e-4 of the host f64 EM's.  The sampled
+E-step (float64) on the card against the point E-step on the CPU at the
+ages it drew: rtol 1e-12 with a norm-wise floor (tests/test_torch_em.py's
+bound); mode tree on an SMC import with permuted labels as the CLI modes.
 """
 
 import filecmp
@@ -798,3 +801,66 @@ def test_trace_of_the_em_on_the_card(card, fix, tmp_path, monkeypatch):
         events = json.load(fh)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     assert filecmp.cmp(str(tmp_path / "plain.coal"), str(tmp_path / "traced.coal"), shallow=False)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_e_step_sampled_on_the_card(card, seed):
+    """The Monte-Carlo E-step in float64 on the card: each age in its
+    interval; the six outputs within rtol 1e-12 (plus a norm-wise floor of
+    1e-12 times the output's largest magnitude) of the port's point E-step
+    on the CPU at the ages it drew (CUDA's and the CPU's exp/expm1/log
+    differ in the last ulp, which the closed forms' cancellations grow);
+    two generators of one seed bitwise equal."""
+    from colate_tpu_torch.config import age_bin_edges
+    from colate_tpu_torch.ops.em import e_step_all_bins, e_step_sampled
+
+    epochs, _ = epochs_from_bins("3,7,0.2", 28.0, 0.0)
+    E = epochs.shape[0]
+    g = np.random.default_rng(seed)
+    rates = INITIAL_COAL_RATE * np.exp(g.uniform(-2.0, 2.0, E))
+    edges = age_bin_edges()
+    a, b = np.tile(edges[:-1], 64), np.tile(edges[1:], 64)
+    on = [torch.as_tensor(x, device=card) for x in (epochs, rates, a, b)]
+    draw = lambda: e_step_sampled(on[0], on[1], torch.Generator(device=card).manual_seed(seed),
+                                  on[2], on[3])
+    out, again = draw(), draw()
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    t = out[-1].cpu()
+    assert out[0].device.type == card.type
+    assert bool(((t >= torch.from_numpy(a)) & (t <= torch.from_numpy(b))).all())
+    ep = torch.from_numpy(epochs)
+    k = torch.clamp(torch.searchsorted(ep, t, right=True) - 1, 0, E - 1)
+    ref = e_step_all_bins(ep, torch.from_numpy(rates)[None], t, k)
+    for x, y in zip(out[:-1], ref):
+        y = y[0].numpy()
+        np.testing.assert_allclose(x.cpu().numpy(), y, rtol=1e-12,
+                                   atol=1e-12 * float(np.abs(y).max()))
+
+
+def test_tree_mode_on_an_smc_import_on_the_card(card, tmp_path, capsys):
+    """Mode tree on the card on an ARGweaver SMC import whose internal
+    labels were permuted (parents not numbered after their children):
+    the device route, rates within 1e-5 of --torch_device cpu, the same
+    NaN pattern."""
+    from colate_tpu_torch.fixtures import make_anc_mut, write_genealogy
+    from colate_tpu_torch.formats.anc import read_argweaver_smc
+
+    src, mut = make_anc_mut(str(tmp_path / "src"), "1", N=16, num_trees=60, seed=9)
+    write_genealogy(str(tmp_path / "g.smc"), src, "smc", seed=4)
+    imported = read_argweaver_smc(str(tmp_path / "g.smc"))
+    imported.write(str(tmp_path / "imp_chr1.anc"))
+    mut.write(str(tmp_path / "imp_chr1.mut"))
+    with open(tmp_path / "chr.txt", "w") as fh:
+        fh.write("1\n")
+    argv = ["--mode", "tree", "-i", str(tmp_path / "imp"), "--chr", str(tmp_path / "chr.txt"),
+            "--bins", "1,6,0.25", "--num_bootstraps", "3"]
+    for device in ("cuda", "cpu"):
+        assert cli.main(argv + ["-o", str(tmp_path / device), "--torch_device", device]) == 0
+        err = capsys.readouterr().err
+        assert ("route=device-sorted:cuda" in err) == (device == "cuda")
+    r, ref = _coal_rates(str(tmp_path / "cuda.coal")), _coal_rates(str(tmp_path / "cpu.coal"))
+    assert r.shape == ref.shape
+    np.testing.assert_array_equal(np.isnan(r), np.isnan(ref))
+    ok = np.isfinite(ref)
+    assert ok.sum() > 10
+    np.testing.assert_allclose(r[ok], ref[ok], rtol=1e-5)

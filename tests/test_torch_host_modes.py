@@ -6,7 +6,9 @@ walk and the ``mc_parity`` replay, with an empty conditional group,
 bootstraps, a mask and a map, ancient samples, and 3,000 trees.  Also: no
 host mode imports torch (each run in a fresh process), the modules that
 compute with torch turn TF32 off, and CondCoalRates has no Python
-fallback.
+fallback.  The host modules of the library surface (the importers,
+``.trees``, branch association, CollapsedMatrix, annotate_ages, the tree
+E-step, StageTimer) import no torch either, in a fresh process.
 
 The fixtures are the port's generators (colate_tpu_torch/fixtures.py),
 which write the bytes of tests/helpers' (test_torch_make_tmp.py holds
@@ -374,6 +376,59 @@ def test_host_mode_imports_no_torch(no_torch_runs, mode):
     assert rc == 0
     assert not torch_loaded, f"torch was imported by mode {mode} (or a mode before it)"
 
+
+# the host modules of the library surface: each imported in turn in one fresh
+# process, then driven once on a small genealogy (SMC import, node ages,
+# .trees round trip, branch association, annotate_ages, the tree E-step,
+# CollapsedMatrix, StageTimer), recording whether torch was loaded after each
+LIBRARY_MODULES = ["colate_tpu_torch.formats.anc", "colate_tpu_torch.formats.mut",
+                   "colate_tpu_torch.formats.trees", "colate_tpu_torch.formats.branch_assoc",
+                   "colate_tpu_torch.formats.collapsed", "colate_tpu_torch.ops.em_tree",
+                   "colate_tpu_torch.utils.progress"]
+NO_TORCH_LIBRARY = """
+import importlib, json, os, sys
+out = {}
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+    out[name] = "torch" in sys.modules
+import numpy as np
+from colate_tpu_torch.fixtures import make_anc_mut, write_genealogy
+from colate_tpu_torch.formats import anc, branch_assoc, collapsed, mut, trees
+from colate_tpu_torch.ops import em_tree
+from colate_tpu_torch.utils.progress import StageTimer
+root = sys.argv[2]
+st = StageTimer()
+with st.stage("all"):
+    a, m = make_anc_mut(os.path.join(root, "g"), "1", N=8, num_trees=12, seed=3)
+    write_genealogy(os.path.join(root, "g.smc"), a, "smc", seed=1)
+    imp = anc.read_argweaver_smc(os.path.join(root, "g.smc"))
+    anc.node_ages(imp)
+    trees.write_trees_file(trees.anc_to_tables(imp, m), os.path.join(root, "g.trees"))
+    back = trees.tables_to_anc(trees.read_trees_file(os.path.join(root, "g.trees")), 8)
+    branch_assoc.associate_equivalent_branches(back)
+    mut.annotate_ages(m, imp)
+    ones = np.ones(185, np.float32)
+    em_tree.em_tree_shared(np.array([0.0, 100.0, 1e4]), np.full(3, 1e-4), ones, ones, 50.0, 50.0)
+    with open(os.path.join(root, "g.bin"), "wb") as fh:
+        collapsed.write_collapsed(fh, np.eye(3, dtype=np.float32))
+out["workflow"] = "torch" in sys.modules
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def no_torch_library(tmp_path_factory):
+    load_native()
+    p = subprocess.run([sys.executable, "-c", NO_TORCH_LIBRARY, json.dumps(LIBRARY_MODULES),
+                        str(tmp_path_factory.mktemp("notorchlib"))], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return json.loads(p.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("step", LIBRARY_MODULES + ["workflow"])
+def test_library_host_modules_import_no_torch(no_torch_library, step):
+    assert not no_torch_library[step], f"torch was loaded by {step} (or a step before it)"
 
 TF32 = """
 import importlib, sys, torch
