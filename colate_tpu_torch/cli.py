@@ -243,10 +243,12 @@ def _run_mut(args) -> int:
         import torch.distributed as dist
 
         from colate_tpu_torch.parallel.multihost import init_distributed, run_mut_multihost
+        from colate_tpu_torch.utils.progress import profile_trace
 
         init_distributed(args.coordinator, args.num_processes, args.process_id)
         try:
-            run_mut_multihost(mut_config(args), args.torch_device)
+            with profile_trace():  # COLATE_TPU_TRACE=<dir>: each rank's whole run
+                run_mut_multihost(mut_config(args), args.torch_device)
         finally:
             dist.destroy_process_group()
         return 0

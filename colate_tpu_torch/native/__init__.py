@@ -7,7 +7,8 @@ streaming BAM/CRAM pileup of ``hts.cpp``, and the CondCoalRates walks of
 ``cond.cpp`` (the analytic f64 prefix-sum walk and the f32 replay).
 
 The sources are the JAX package's ``native/`` C++, copied whole, and all
-of them are built.  The library is built with ``g++`` at first use into
+of them are built; ``io.cpp``'s fused prefilter and join+bin also time
+themselves per chromosome, shard and worker (:func:`span_records`).  The library is built with ``g++`` at first use into
 ``colate_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  The build writes a temporary file and renames it into place,
@@ -136,6 +137,8 @@ def _declare(lib) -> None:
         + [ctypes.c_char_p, I]        # errbuf
     )
     lib.cn_prefilter_free.argtypes = [P]
+    lib.cn_prefilter_spans.restype = P
+    lib.cn_prefilter_spans.argtypes = [P, ctypes.POINTER(L)]
     lib.cn_tmptmp_fused_stream.restype = P
     lib.cn_tmptmp_fused_stream.argtypes = (
         [P]                           # prefilter handle (consumed)
@@ -152,6 +155,8 @@ def _declare(lib) -> None:
     lib.cn_fused_num_sites.argtypes = [P]
     lib.cn_fused_hist.restype = P
     lib.cn_fused_hist.argtypes = col
+    lib.cn_fused_spans.restype = P
+    lib.cn_fused_spans.argtypes = [P, ctypes.POINTER(L)]
     lib.cn_fused_free.argtypes = [P]
     lib.cn_em_run.restype = None
     lib.cn_em_run.argtypes = (
@@ -227,6 +232,28 @@ def _declare(lib) -> None:
     lib.cn_bcf_col.restype = P
     lib.cn_bcf_col.argtypes = col
     lib.cn_bcf_free.argtypes = [P]
+
+
+# the kinds of the fused parse's spans (io.cpp:SpanKind): the span's name
+# and the names of its two counts
+SPAN_KINDS = {
+    0: ("prefilter.chrom", "rows_read", "rows_kept"),
+    1: ("prefilter.shard", "rows_read", "rows_kept"),
+    2: ("join_bin.scan", "records", "runs"),
+    3: ("join_bin.join", "sites", "rows"),
+    4: ("join_bin.bin", "sites", "blocks"),
+}
+SPAN_FIELDS = 9   # kind, chrom, part, worker, start_ns, end_ns, cpu_ns, n0, n1
+
+
+def span_records(getter, handle) -> tuple[int, np.ndarray]:
+    """(workers, records [n, SPAN_FIELDS] int64) of a handle's spans, copied
+    out through ``getter`` (``cn_prefilter_spans`` or ``cn_fused_spans``)."""
+    nb = ctypes.c_int64()
+    ptr = getter(handle, ctypes.byref(nb))
+    flat = np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int64)),
+                                 shape=(nb.value // 8,)).copy()
+    return int(flat[0]), flat[1:].reshape(-1, SPAN_FIELDS)
 
 
 def col_array(lib, getter, handle, col, dtype):

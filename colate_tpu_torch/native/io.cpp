@@ -37,6 +37,7 @@
 #include <string>
 #include <thread>
 #include <vector>
+#include <time.h>
 
 #include <zlib.h>
 
@@ -1119,14 +1120,53 @@ struct FilteredRows {
   std::vector<int64_t> pos;
   std::vector<double> ab, ae;
   std::vector<uint8_t> anc, der;
+  int64_t n_read = 0;  // rows the filters saw
   bool ok = true;
   std::string err;
 };
+
+// Spans of the fused parse, one per chromosome, shard, run scan, join and
+// binning (never per row), read back as flat int64 records by
+// cn_prefilter_spans / cn_fused_spans.  Times are CLOCK_MONOTONIC, the
+// clock of Python's time.perf_counter_ns on Linux, so they lie on the
+// caller's spans; cpu_ns is the thread's own CPU time
+// (CLOCK_THREAD_CPUTIME_ID) inside the span, less that of spans it holds
+// on the same thread, so a call's CPU is the sum over its spans.  worker
+// numbers the threads of one call, 0 being the caller's.
+enum SpanKind : int64_t {
+  SPAN_PREFILTER_CHROM = 0,  // n0 rows read, n1 rows kept
+  SPAN_PREFILTER_SHARD = 1,  // n0 rows read, n1 rows kept
+  SPAN_SCAN = 2,             // part 0 target, 1 reference; n0 records, n1 runs
+  SPAN_JOIN = 3,             // n0 sites joined, n1 prefiltered rows
+  SPAN_BIN = 4,              // n0 sites binned, n1 blocks
+};
+
+struct SpanRec {
+  int64_t kind, chrom, part, worker, start_ns, end_ns, cpu_ns, n0, n1;
+};
+static_assert(sizeof(SpanRec) == 9 * sizeof(int64_t), "flat int64 records");
+
+inline int64_t clock_ns(clockid_t id) {
+  timespec ts;
+  clock_gettime(id, &ts);
+  return (int64_t)ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+inline int64_t mono_ns() { return clock_ns(CLOCK_MONOTONIC); }
+inline int64_t thread_cpu_ns() { return clock_ns(CLOCK_THREAD_CPUTIME_ID); }
+
+// the accessor's array: the call's worker count, then the records
+void flatten_spans(int64_t workers, const std::vector<SpanRec>& spans,
+                   std::vector<int64_t>& out) {
+  out.assign(1, workers);
+  const int64_t* p = (const int64_t*)spans.data();
+  out.insert(out.end(), p, p + spans.size() * 9);
+}
 
 struct FusedOutC {
   std::vector<double> sh, ns, se, ne;  // [num_blocks * nbins]
   int64_t num_blocks = 0;
   int64_t num_sites = 0;
+  std::vector<int64_t> spans;  // flatten_spans: join+bin workers, records
 };
 
 // mask lookup (coal.cpp:2163-2168): pass when pos >= len or mask[pos-1]=='P'
@@ -1145,6 +1185,7 @@ static inline bool fused_emit_row(const char* const* f, int nf, const char* e,
                                   const uint8_t* tmask, int64_t tmask_len,
                                   const uint8_t* rmask, int64_t rmask_len,
                                   double age, FilteredRows* out) {
+  out->n_read++;
   if (nf < 11) {
     out->err = "short .mut row";
     out->ok = false;
@@ -1285,10 +1326,22 @@ void fused_parse_range(const char* p, const char* end, const uint8_t* tmask,
   fused_parse_range_swar(p, end, tmask, tmask_len, rmask, rmask_len, age, out);
 }
 
+// one chromosome's .mut on the thread `worker`; its span, then its
+// shards' spans, go to `spans` (shard threads numbered from next_worker)
 void mut_prefilter_one(const char* mut_path, const uint8_t* tmask,
                        int64_t tmask_len, const uint8_t* rmask,
-                       int64_t rmask_len, double age, int par,
-                       FilteredRows* out) {
+                       int64_t rmask_len, double age, int par, int chrom,
+                       int worker, std::atomic<int>* next_worker,
+                       FilteredRows* out, std::vector<SpanRec>* spans) {
+  const int64_t t0 = mono_ns(), cpu0 = thread_cpu_ns();
+  std::vector<SpanRec> shard_spans;
+  int64_t inline_cpu = 0;  // of a shard parsed on this thread
+  auto finish = [&] {
+    spans->push_back({SPAN_PREFILTER_CHROM, chrom, -1, worker, t0, mono_ns(),
+                      thread_cpu_ns() - cpu0 - inline_cpu, out->n_read,
+                      (int64_t)out->pos.size()});
+    spans->insert(spans->end(), shard_spans.begin(), shard_spans.end());
+  };
   MappedFile buf;
   if (!buf.open(mut_path, out->err)) {
     out->ok = false;
@@ -1297,7 +1350,10 @@ void mut_prefilter_one(const char* mut_path, const uint8_t* tmask,
   const char* p = buf.data;
   const char* end = p + buf.size;
   const char* nl = (const char*)memchr(p, '\n', end - p);
-  if (!nl) return;  // empty table: header only
+  if (!nl) {  // empty table: header only
+    finish();
+    return;
+  }
   p = nl + 1;
 
   // parse + filter, sharded on threads when this chromosome got spare
@@ -1317,18 +1373,27 @@ void mut_prefilter_one(const char* mut_path, const uint8_t* tmask,
   bnd.push_back(end);
   const size_t nshard = bnd.size() - 1;
   std::vector<FilteredRows> shards(nshard);
+  shard_spans.resize(nshard);
+  auto shard = [&](size_t w, int wk) {
+    const int64_t s0 = mono_ns(), c0 = thread_cpu_ns();
+    fused_parse_range(bnd[w], bnd[w + 1], tmask, tmask_len, rmask, rmask_len,
+                      age, &shards[w]);
+    shard_spans[w] = {SPAN_PREFILTER_SHARD, chrom, (int64_t)w, wk, s0,
+                      mono_ns(), thread_cpu_ns() - c0, shards[w].n_read,
+                      (int64_t)shards[w].pos.size()};
+  };
   if (nshard == 1) {
-    fused_parse_range(bnd[0], bnd[1], tmask, tmask_len, rmask, rmask_len, age,
-                      &shards[0]);
+    shard(0, worker);
+    inline_cpu = shard_spans[0].cpu_ns;
   } else {
     std::vector<std::thread> th;
-    for (size_t w = 0; w < nshard; w++)
-      th.emplace_back([&, w] {
-        fused_parse_range(bnd[w], bnd[w + 1], tmask, tmask_len, rmask,
-                          rmask_len, age, &shards[w]);
-      });
+    for (size_t w = 0; w < nshard; w++) {
+      const int wk = next_worker->fetch_add(1);
+      th.emplace_back([&, w, wk] { shard(w, wk); });
+    }
     for (auto& x : th) x.join();
   }
+  for (auto& s : shards) out->n_read += s.n_read;
   if (nshard == 1) {
     FilteredRows& s = shards[0];
     out->pos = std::move(s.pos);
@@ -1338,6 +1403,7 @@ void mut_prefilter_one(const char* mut_path, const uint8_t* tmask,
     out->der = std::move(s.der);
     out->ok = s.ok;
     out->err = s.err;
+    finish();
     return;
   }
   size_t nr = 0;
@@ -1352,6 +1418,7 @@ void mut_prefilter_one(const char* mut_path, const uint8_t* tmask,
     out->anc.insert(out->anc.end(), s.anc.begin(), s.anc.end());
     out->der.insert(out->der.end(), s.der.begin(), s.der.end());
   }
+  finish();
 }
 
 }  // namespace
@@ -1434,6 +1501,7 @@ static void fused_join_chrom(
 struct PrefilterC {
   std::vector<FilteredRows> rows;
   std::vector<std::string> paths;
+  std::vector<int64_t> spans;  // flatten_spans: parse threads, records
 };
 
 extern "C" {
@@ -1459,7 +1527,10 @@ void* cn_mut_prefilter(
   if ((int)nt > n_chr) nt = (unsigned)n_chr;
   const int par = (int)(hw / (nt ? nt : 1));
   std::atomic<int> next{0};
-  auto work = [&] {
+  // workers: 0 the caller, 1..nt the chromosome threads, then shard threads
+  std::atomic<int> next_worker{nt <= 1 ? 1 : (int)nt + 1};
+  std::vector<std::vector<SpanRec>> chrom_spans(n_chr);
+  auto work = [&](int worker) {
     for (;;) {
       const int c = next.fetch_add(1);
       if (c >= n_chr) return;
@@ -1467,17 +1538,20 @@ void* cn_mut_prefilter(
       const int64_t tml = tmask_off ? tmask_off[c + 1] - tmask_off[c] : 0;
       const uint8_t* rm = rmask_off ? rmask_blob + rmask_off[c] : nullptr;
       const int64_t rml = rmask_off ? rmask_off[c + 1] - rmask_off[c] : 0;
-      mut_prefilter_one(pf->paths[c].c_str(), tm, tml, rm, rml, age, par,
-                        &pf->rows[c]);
+      mut_prefilter_one(pf->paths[c].c_str(), tm, tml, rm, rml, age, par, c,
+                        worker, &next_worker, &pf->rows[c], &chrom_spans[c]);
     }
   };
   if (nt <= 1) {
-    work();
+    work(0);
   } else {
     std::vector<std::thread> th;
-    for (unsigned i = 0; i < nt; i++) th.emplace_back(work);
+    for (unsigned i = 0; i < nt; i++) th.emplace_back(work, (int)i + 1);
     for (auto& x : th) x.join();
   }
+  std::vector<SpanRec> all;
+  for (auto& v : chrom_spans) all.insert(all.end(), v.begin(), v.end());
+  flatten_spans((int64_t)nt * par, all, pf->spans);
   for (int c = 0; c < n_chr; c++)
     if (!pf->rows[c].ok) {
       snprintf(errbuf, errlen, "%s: %s", pf->paths[c].c_str(),
@@ -1489,6 +1563,15 @@ void* cn_mut_prefilter(
 }
 
 void cn_prefilter_free(void* h) { delete (PrefilterC*)h; }
+
+// the prefilter's spans (flatten_spans): the parse threads it chose
+// (chromosome threads times shards a chromosome), then a record per
+// chromosome followed by its shards'
+void* cn_prefilter_spans(void* h, int64_t* nbytes) {
+  auto& v = ((PrefilterC*)h)->spans;
+  *nbytes = (int64_t)(v.size() * 8);
+  return v.data();
+}
 
 // Phase 2: cursor-join the prefiltered rows against the decoded site
 // streams and bin analytically.  Consumes (frees) the prefilter handle.
@@ -1764,11 +1847,26 @@ void* cn_tmptmp_fused_stream(
     return nullptr;
   }
 
+  // workers: 0 the caller (the reference's scan), 1 the target's scan,
+  // 2..nt+1 the join+bin threads (the caller's 0 when there is one)
+  unsigned hw = std::thread::hardware_concurrency();
+  int nt = (int)std::min<unsigned>(hw ? hw : 2, 32);
+  if (nt > n_chr) nt = n_chr;
+  std::vector<SpanRec> scan_spans(2);
+  auto scan = [&](const MappedFile& m, std::vector<ColateSeg>& runs, int part,
+                  int worker) {
+    const int64_t t0 = mono_ns(), c0 = thread_cpu_ns();
+    scan_colatein_runs(m.data, m.size, runs);
+    int64_t records = 0;
+    for (auto& r : runs) records += (int64_t)((r.hi - r.lo) / (18 + r.lchrom));
+    scan_spans[part] = {SPAN_SCAN, -1, part, worker, t0, mono_ns(),
+                        thread_cpu_ns() - c0, records, (int64_t)runs.size()};
+  };
   // the two run scans are independent - overlap them
   std::vector<ColateSeg> t_runs, r_runs;
   {
-    std::thread th([&] { scan_colatein_runs(tm.data, tm.size, t_runs); });
-    scan_colatein_runs(rm.data, rm.size, r_runs);
+    std::thread th([&] { scan(tm, t_runs, 0, 1); });
+    scan(rm, r_runs, 1, 0);
     th.join();
   }
   std::vector<const ColateSeg*> t_seg, r_seg;
@@ -1780,11 +1878,13 @@ void* cn_tmptmp_fused_stream(
       h_ne(n_chr);
   std::atomic<int64_t> total_sites{0};
   std::atomic<int> next{0};
-  auto work = [&] {
+  std::vector<SpanRec> join_spans(n_chr), bin_spans(n_chr);
+  auto work = [&](int worker) {
     for (;;) {
       const int c = next.fetch_add(1);
       if (c >= n_chr) return;
       FusedChrom& fc = parts[c];
+      const int64_t j0 = mono_ns(), jc0 = thread_cpu_ns();
       RecView tv, rv;
       if (t_seg[c]) {
         tv.stride = 18 + t_seg[c]->lchrom;
@@ -1797,6 +1897,9 @@ void* cn_tmptmp_fused_stream(
         rv.n = (int64_t)((r_seg[c]->hi - r_seg[c]->lo) / rv.stride);
       }
       fused_join_chrom_mm(pf->rows[c], tv, rv, ref_age, nbpb, &fc);
+      const int64_t b0 = mono_ns(), bc0 = thread_cpu_ns();
+      join_spans[c] = {SPAN_JOIN, c, -1, worker, j0, b0, bc0 - jc0,
+                       fc.num_sites, (int64_t)pf->rows[c].pos.size()};
       const size_t hn = (size_t)fc.blocks_used * nbins;
       h_sh[c].assign(hn, 0.0);
       h_ns[c].assign(hn, 0.0);
@@ -1809,6 +1912,8 @@ void* cn_tmptmp_fused_stream(
                         fc.blocks_used, nbins, edges, age, bin_c,
                         h_sh[c].data(), h_ns[c].data(), h_se[c].data(),
                         h_ne[c].data());
+      bin_spans[c] = {SPAN_BIN, c, -1, worker, b0, mono_ns(),
+                      thread_cpu_ns() - bc0, fc.num_sites, fc.blocks_used};
       // release this chromosome's joined columns, prefiltered rows and
       // mapped record pages before claiming the next — peak RSS stays a
       // couple of chromosomes, not the genome (blocks_used/num_sites
@@ -1832,19 +1937,22 @@ void* cn_tmptmp_fused_stream(
       drop(rm, r_seg[c]);
     }
   };
-  unsigned hw = std::thread::hardware_concurrency();
-  int nt = (int)std::min<unsigned>(hw ? hw : 2, 32);
-  if (nt > n_chr) nt = n_chr;
   if (nt <= 1) {
-    work();
+    work(0);
   } else {
     std::vector<std::thread> th;
-    for (int i = 0; i < nt; i++) th.emplace_back(work);
+    for (int i = 0; i < nt; i++) th.emplace_back(work, i + 2);
     for (auto& x : th) x.join();
   }
   delete pf;
 
   auto* out = new FusedOutC();
+  std::vector<SpanRec> all = scan_spans;
+  for (int c = 0; c < n_chr; c++) {
+    all.push_back(join_spans[c]);
+    all.push_back(bin_spans[c]);
+  }
+  flatten_spans(nt, all, out->spans);
   out->num_sites = total_sites;
   for (int c = 0; c < n_chr; c++) out->num_blocks += parts[c].blocks_used;
   const size_t hn = (size_t)out->num_blocks * nbins;
@@ -1876,6 +1984,15 @@ void* cn_fused_hist(void* h, int which, int64_t* nbytes) {
   }
   *nbytes = (int64_t)(v->size() * 8);
   return v->data();
+}
+
+// the join+bin's spans (flatten_spans): its join+bin threads, then the
+// target's and the reference's run scans, then each chromosome's join
+// and binning
+void* cn_fused_spans(void* h, int64_t* nbytes) {
+  auto& v = ((FusedOutC*)h)->spans;
+  *nbytes = (int64_t)(v.size() * 8);
+  return v.data();
 }
 
 void cn_fused_free(void* h) { delete (FusedOutC*)h; }

@@ -104,11 +104,10 @@ def run_mut_multihost(cfg: MutRunConfig, device: str | torch.device = "cuda"):
     :func:`rank_device`.  Needs analytic sampling (mc_parity replays one
     RNG stream through the whole parse).  Every rank returns the same
     MutResult; rank 0 writes ``<out>.coal``."""
-    import time
 
     from colate_tpu_torch.formats.coal import write_mut_coal
     from colate_tpu_torch.models import mut_em
-    from colate_tpu_torch.utils.progress import log_event
+    from colate_tpu_torch.utils.progress import StageTimer, log_event
 
     if cfg.sampling == "mc_parity":
         raise ValueError("multihost runs require analytic sampling")
@@ -133,41 +132,39 @@ def run_mut_multihost(cfg: MutRunConfig, device: str | torch.device = "cuda"):
     nproc, pid = dist.get_world_size(), dist.get_rank()
     device = rank_device(device)
 
-    timings: dict = {}
+    st = StageTimer()
     age, ref_age = mut_em._ages(cfg)
     seed = cfg.seed if cfg.seed is not None else 1
     chroms, mut_files, tmask_files, rmask_files = mut_em.resolve_tmp_inputs(cfg)
 
     lo, hi = partition_chromosomes(chroms, nproc, pid)
-    t0 = time.time()
     sub = slice(lo, hi)
-    if lo < hi:
-        sh, ns, se, ne, nsites_loc, nb_loc = mut_em.compute_suffstats(
-            cfg,
-            chroms[sub],
-            mut_files[sub],
-            tmask_files[sub] if tmask_files else None,
-            rmask_files[sub] if rmask_files else None,
-            age,
-            ref_age,
-            False,
-            None,
-            seed,
-            timings,
-            device,
-        )
-    else:  # more processes than chromosomes: empty shard
-        sh = ns = se = ne = np.zeros((0, NUM_AGE_BINS), np.float64)
-        nsites_loc, nb_loc = 0, 0
-    timings["parse_local"] = time.time() - t0
+    with st.stage("parse_local"):
+        if lo < hi:
+            sh, ns, se, ne, nsites_loc, nb_loc = mut_em.compute_suffstats(
+                cfg,
+                chroms[sub],
+                mut_files[sub],
+                tmask_files[sub] if tmask_files else None,
+                rmask_files[sub] if rmask_files else None,
+                age,
+                ref_age,
+                False,
+                None,
+                seed,
+                st,
+                device,
+            )
+        else:  # more processes than chromosomes: empty shard
+            sh = ns = se = ne = np.zeros((0, NUM_AGE_BINS), np.float64)
+            nsites_loc, nb_loc = 0, 0
 
-    t0 = time.time()
-    table = allgather_scalars(nb_loc, nsites_loc)
-    offsets = np.concatenate([[0], np.cumsum(table[:, 0])])
-    total_blocks = int(offsets[-1])
-    num_sites = int(table[:, 1].sum())
-    merged = psum_histograms((sh, ns, se, ne), int(offsets[pid]), total_blocks)
-    timings["dcn_merge"] = time.time() - t0
+    with st.stage("dcn_merge"):
+        table = allgather_scalars(nb_loc, nsites_loc)
+        offsets = np.concatenate([[0], np.cumsum(table[:, 0])])
+        total_blocks = int(offsets[-1])
+        num_sites = int(table[:, 1].sum())
+        merged = psum_histograms((sh, ns, se, ne), int(offsets[pid]), total_blocks)
     log_event(
         "multihost_merge",
         process=pid,
@@ -177,7 +174,7 @@ def run_mut_multihost(cfg: MutRunConfig, device: str | torch.device = "cuda"):
         blocks_local=nb_loc,
         blocks_total=total_blocks,
         sites_total=num_sites,
-        sec=timings["dcn_merge"],
+        sec=st.timings["dcn_merge"],
     )
 
     # the bootstrap and the EM are deterministic given the merged
@@ -185,7 +182,7 @@ def run_mut_multihost(cfg: MutRunConfig, device: str | torch.device = "cuda"):
     # seed is passed on: without it each rank would draw its own from
     # time+pid and the ranks' bootstrap weights would differ.
     res = mut_em.finish_from_suffstats(
-        cfg, (*merged, num_sites, total_blocks), timings, device, seed=seed,
+        cfg, (*merged, num_sites, total_blocks), st, device, seed=seed,
         write_outputs=pid == 0,
     )
     if pid == 0:

@@ -180,16 +180,39 @@ def _pp(a):
     return ctypes.c_void_p(a.ctypes.data) if isinstance(a, np.ndarray) else a
 
 
+def _record_native(recorder, workers_counter: str, spans) -> None:
+    """The native spans ``(workers, records)`` of
+    ``native.span_records`` into ``recorder`` (a
+    ``utils/progress.py:StageTimer``), with the worker count as
+    ``workers_counter``."""
+    from colate_tpu_torch.native import SPAN_KINDS
+
+    workers, records = spans
+    recorder.count(workers_counter, workers)
+    for kind, chrom, part, worker, t0, t1, cpu, n0, n1 in records.tolist():
+        name, c0, c1 = SPAN_KINDS[kind]
+        args = {c0: n0, c1: n1}
+        if chrom >= 0:
+            args["chrom"] = chrom
+        if part >= 0:
+            args["part"] = part
+        recorder.add_span(name, t0, t1, cpu_ns=cpu, worker=worker, args=args)
+
+
 def mut_prefilter_native(
     mut_files: list[str],
     target_masks: list[np.ndarray] | None,
     reference_masks: list[np.ndarray] | None,
     age: float = 0.0,
+    recorder=None,
 ):
     """Phase 1 of the fused tmp pipeline: parse + filter the .mut files
     (native, threaded, intra-file sharded).  Independent of the site
     streams, so callers overlap it with the .colate.in decode.  Returns
-    an opaque handle for :func:`fused_tmptmp_stream`.
+    an opaque handle for :func:`fused_tmptmp_stream`.  A ``recorder``
+    (``StageTimer``) gets the native spans (``prefilter.chrom``, each
+    chromosome's rows read and kept; ``prefilter.shard``, nested in it)
+    and the counter ``prefilter_workers``.
 
     NOTE: tmp inputs force age=0 in the reference (parse_tmptmp,
     coal.cpp:2073-2074), so the row filter ignores the caller's age —
@@ -230,6 +253,10 @@ def mut_prefilter_native(
     )
     if not h:
         raise FileNotFoundError(errbuf.value.decode() or "cn_mut_prefilter failed")
+    if recorder is not None:
+        # read now: fused_tmptmp_stream frees the handle
+        _record_native(recorder, "prefilter_workers",
+                       native.span_records(lib.cn_prefilter_spans, h))
     return h
 
 
@@ -240,12 +267,17 @@ def fused_tmptmp_stream(
     reference_path: str,
     age: float = 0.0,
     ref_age: float = 0.0,
+    recorder=None,
 ):
     """Streaming phase 2: join + bin straight from the two ``.colate.in``
     FILES, one chromosome run at a time — peak memory is a single
     chromosome's columns per stream, not the whole genome (the reference
     also streams, coal.cpp:2125-2145).  Consumes the prefilter handle.
     Returns (histograms, num_sites, num_blocks); raises on I/O errors.
+    A ``recorder`` (``StageTimer``) gets the native spans
+    (``join_bin.scan`` of each file, ``join_bin.join`` and
+    ``join_bin.bin`` of each chromosome, with its sites) and the counter
+    ``join_bin_workers``.
 
     Equivalent to read_colate_in + join_tmptmp + native binning when
     chromosome names are unique in file order (the run reader applies the
@@ -274,6 +306,8 @@ def fused_tmptmp_stream(
             errbuf.value.decode() or "cn_tmptmp_fused_stream failed"
         )
     try:
+        if recorder is not None:
+            _record_native(recorder, "join_bin_workers", native.span_records(lib.cn_fused_spans, h))
         num_blocks = int(lib.cn_fused_num_blocks(h))
         num_sites = int(lib.cn_fused_num_sites(h))
         hists = tuple(

@@ -352,17 +352,26 @@ def test_annotate_ages(genealogy, source):
 
 
 def test_stage_timer(monkeypatch, capsys):
-    """The same stage records from the same clock readings."""
-    records = []
-    for pkg in (progress, jax_progress):
-        clock = iter([10.0, 10.5, 11.0, 13.25, 20.0, 20.125])
-        monkeypatch.setattr(pkg.time, "time", lambda: next(clock))
+    """The same stage records from the same clock readings: the JAX
+    package's on time.time, the port's on time.perf_counter_ns, where it
+    also keeps each stage's span."""
+    records, timers = [], []
+    readings = [10.0, 10.5, 11.0, 13.25, 20.0, 20.125]
+    for pkg, clock_name, clock in (
+            (progress, "perf_counter_ns", iter(int(r * 10**9) for r in readings)),
+            (jax_progress, "time", iter(readings))):
+        monkeypatch.setattr(pkg.time, clock_name, lambda: next(clock))
         st = pkg.StageTimer()
         for name in ("parse", "em", "parse"):
             with st.stage(name) as s:
                 assert isinstance(s, pkg._Stage)
         monkeypatch.delenv("COLATE_TPU_LOG", raising=False)
         st.report(sites=7)
+        monkeypatch.undo()
         records.append((st.timings, capsys.readouterr().err))
+        timers.append(st)
     assert records[0] == records[1]
     assert records[0][0] == {"parse": 0.5 + 0.125, "em": 2.25}
+    assert [tuple(s[:3]) for s in timers[0].spans] == [
+        ("parse", 10 * 10**9, 10_500_000_000), ("em", 11 * 10**9, 13_250_000_000),
+        ("parse", 20 * 10**9, 20_125_000_000)]
