@@ -9,7 +9,12 @@ norm=1e3).  The reference reloads this to skip the parse stage
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import numpy as np
+
+from colate_tpu_torch.config import NUM_AGE_BINS
 
 
 def write_colate_mat(
@@ -30,15 +35,36 @@ def write_colate_mat(
             fh.write(" ".join(fmt(v) for v in notshared[i]) + " \n")
 
 
-def read_colate_mat(path: str, num_bootstrap: int):
-    """Returns (age_bins, shared [B,bins], notshared [B,bins])."""
-    vals = np.loadtxt(path, dtype=np.float64, ndmin=2)
-    age_bins = vals[0]
-    nb = vals.shape[1]
-    shared = np.zeros((num_bootstrap, nb), np.float64)
-    notshared = np.zeros((num_bootstrap, nb), np.float64)
-    for i in range(num_bootstrap):
-        if 1 + 2 * i + 1 < vals.shape[0]:
-            shared[i] = vals[1 + 2 * i]
-            notshared[i] = vals[2 + 2 * i]
+def read_colate_mat(path: str, num_bootstrap: int, recorder=None):
+    """Returns (age_bins, shared [B,bins], notshared [B,bins]).
+
+    One call of the native reader (``native/io.cpp:cn_colate_mat_read``),
+    which parses the rows on as many workers as the file's size and the
+    CPUs the process may use allow, straight into these arrays: the values
+    of ``np.loadtxt``, bit for bit.  Replicates the file lacks (or holds
+    only the shared row of) stay zero; rows past ``2 * num_bootstrap`` are
+    dropped.  Raises FileNotFoundError where the file cannot be opened,
+    and ValueError, naming the file and the line, where the file is
+    empty, a row has another number of values than row 0, or a token is
+    not a number (``#`` too).  A ``recorder`` (``StageTimer``) gets the counter ``colate_mat_workers``.
+    """
+    from colate_tpu_torch import native
+
+    lib = native.load()
+    errbuf = ctypes.create_string_buffer(1024)
+    width = ctypes.c_int64(NUM_AGE_BINS)
+    workers = 0
+    while workers == 0:  # 0: row 0 is not as wide as asked; width holds its width
+        nb = width.value
+        age_bins = np.empty(nb, np.float64)
+        shared = np.zeros((num_bootstrap, nb), np.float64)
+        notshared = np.zeros((num_bootstrap, nb), np.float64)
+        workers = lib.cn_colate_mat_read(
+            os.fsencode(path), num_bootstrap, nb, age_bins.ctypes.data, shared.ctypes.data,
+            notshared.ctypes.data, ctypes.byref(width), errbuf, len(errbuf))
+    if workers < 0:
+        msg = errbuf.value.decode(errors="replace")
+        raise FileNotFoundError(msg) if workers == -1 else ValueError(msg)
+    if recorder is not None:
+        recorder.count("colate_mat_workers", workers)
     return age_bins, shared, notshared

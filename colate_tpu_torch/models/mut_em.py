@@ -51,9 +51,9 @@ the stages ``parse`` (holding ``prefilter`` and ``join_bin`` on the fused
 path, with the native library's spans per chromosome, shard and worker),
 ``binning``, ``colate_mat_read`` (a rerun), ``bootstrap``, ``epochs``,
 ``em`` and ``coal_write``; the counters ``cpus_allowed`` and, on the
-fused path, ``prefilter_workers`` and ``join_bin_workers``, which the
-``mut_done`` record carries (rows, sites and iterations are in the spans'
-args and the result).
+fused path, ``prefilter_workers`` and ``join_bin_workers`` or, on a
+rerun, ``colate_mat_workers``, which the ``mut_done`` record carries
+(rows, sites and iterations are in the spans' args and the result).
 ``COLATE_TPU_TRACE=<dir>`` writes a torch.profiler trace of the whole job
 of :func:`run_mut_and_write` into ``<dir>``: the stages as
 ``record_function`` ranges, the native spans a row per worker.
@@ -316,7 +316,8 @@ def run_mut(cfg: MutRunConfig, device: str | torch.device = "cuda") -> MutResult
     mat_path = cfg.output + ".colate_mat"
     if os.path.exists(mat_path):
         with st.stage("colate_mat_read"):
-            _, shared_counts, notshared_counts = read_colate_mat(mat_path, cfg.num_bootstrap)
+            _, shared_counts, notshared_counts = read_colate_mat(mat_path, cfg.num_bootstrap,
+                                                                 recorder=st)
         st.timings["parse"] = 0.0
         return finish_from_suffstats(
             cfg, None, st, device, rng=rng, seed=seed,

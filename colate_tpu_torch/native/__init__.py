@@ -3,12 +3,15 @@
 and analytic binning of mode ``mut``, the host f64 EM, the host walks of
 modes ``tree`` and ``local_ancestry`` (node ages, children, the sorted
 populate, the local-ancestry accumulation), the BCF2 decoder and the
-streaming BAM/CRAM pileup of ``hts.cpp``, and the CondCoalRates walks of
-``cond.cpp`` (the analytic f64 prefix-sum walk and the f32 replay).
+streaming BAM/CRAM pileup of ``hts.cpp``, the CondCoalRates walks of
+``cond.cpp`` (the analytic f64 prefix-sum walk and the f32 replay), and
+the threaded ``.colate_mat`` reader (``io.cpp:cn_colate_mat_read``).
 
 The sources are the JAX package's ``native/`` C++, copied whole, and all
 of them are built; ``io.cpp``'s fused prefilter and join+bin also time
-themselves per chromosome, shard and worker (:func:`span_records`).  The library is built with ``g++`` at first use into
+themselves per chromosome, shard and worker (:func:`span_records`), and
+``io.cpp`` adds the ``.colate_mat`` reader, which the JAX package does
+with ``np.loadtxt``.  The library is built with ``g++`` at first use into
 ``colate_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  The build writes a temporary file and renames it into place,
@@ -232,6 +235,13 @@ def _declare(lib) -> None:
     lib.cn_bcf_col.restype = P
     lib.cn_bcf_col.argtypes = col
     lib.cn_bcf_free.argtypes = [P]
+    lib.cn_colate_mat_read.restype = I
+    lib.cn_colate_mat_read.argtypes = (
+        [ctypes.c_char_p, L, L]       # path, B, ncols
+        + [P, P, P]                   # out ages, shared, notshared
+        + [ctypes.POINTER(L)]         # row 0's width
+        + [ctypes.c_char_p, I]        # errbuf
+    )
 
 
 # the kinds of the fused parse's spans (io.cpp:SpanKind): the span's name

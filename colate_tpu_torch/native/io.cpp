@@ -2493,3 +2493,185 @@ int cn_tree_coords(int64_t T, int64_t M, int64_t N, const int32_t* parent,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The .colate_mat cache (formats/colate_mat.py): whitespace-separated
+// text, row 0 the bin ages, then a shared and a not-shared row per
+// replicate.  The file is mapped and split into lines, and the rows are
+// parsed by workers that take chunks of rows in turn and write each
+// value straight into the caller's arrays.  The values, the rows and the
+// failures are np.loadtxt's (its blank lines skipped, a lone '\r' a line
+// break as in Python's universal newlines), but a '#' starts no comment:
+// no writer of the format emits one, and Colate's reader takes none.
+// ---------------------------------------------------------------------------
+
+#include <charconv>
+#include <locale.h>
+#include <sched.h>
+
+namespace {
+
+// each worker parses at least this many rows, so small files take one
+constexpr int64_t kColateMatRowsPerWorker = 128;
+constexpr int64_t kColateMatChunk = 16;  // rows a worker takes at a time
+
+struct ColateMatLine {
+  const char* b;
+  const char* e;
+  int64_t line;  // 1-based
+};
+
+inline bool cm_sep(char c) {
+  return c == ' ' || c == '\t' || c == '\r' || c == '\v' || c == '\f';
+}
+
+// One value, as np.loadtxt reads it: std::from_chars is correctly rounded
+// and ignores the locale; a leading '+' is taken, and so are inf,
+// infinity and nan in any case; a value past the range of a double is
+// +-inf or +-0 (strtod in the C locale).  nan(...) is refused.
+bool cm_value(const char* b, const char* e, double* out) {
+  const char* p = b;
+  if (p < e && *p == '+') {
+    p++;
+    if (p < e && (*p == '+' || *p == '-')) return false;
+  }
+  auto r = std::from_chars(p, e, *out);
+  if (r.ec == std::errc::invalid_argument || r.ptr != e) return false;
+  if (r.ec == std::errc::result_out_of_range) {
+    static const locale_t c_locale = newlocale(LC_ALL_MASK, "C", (locale_t)0);
+    *out = strtod_l(std::string(b, e).c_str(), nullptr, c_locale);
+  } else if (std::isnan(*out) && memchr(p, '(', (size_t)(e - p))) {
+    return false;
+  }
+  return true;
+}
+
+// Parses a line into out[0, n) (nothing stored where out is null) and
+// returns the values it holds; -1 at a token that is not a number, which
+// goes into *err.
+int64_t cm_row(const ColateMatLine& ln, double* out, int64_t n,
+               std::string* err) {
+  int64_t k = 0;
+  const char* p = ln.b;
+  for (;;) {
+    while (p < ln.e && cm_sep(*p)) p++;
+    if (p == ln.e) return k;
+    const char* t = p;
+    while (p < ln.e && !cm_sep(*p)) p++;
+    double v;
+    if (!cm_value(t, p, &v)) {
+      const size_t shown = std::min<size_t>((size_t)(p - t), 40);
+      *err = "line " + std::to_string(ln.line) + ": '" +
+             std::string(t, shown) + "' is not a number";
+      return -1;
+    }
+    if (out && k < n) out[k] = v;
+    k++;
+  }
+}
+
+// The lines of [data, data + size) that hold a value.
+std::vector<ColateMatLine> cm_rows(const char* data, size_t size) {
+  std::vector<ColateMatLine> rows;
+  int64_t line = 0;
+  auto add = [&](const char* b, const char* e) {
+    line++;
+    const char* p = b;
+    while (p < e && cm_sep(*p)) p++;
+    if (p < e) rows.push_back({b, e, line});
+  };
+  const char* p = data;
+  const char* end = data + size;
+  while (p < end) {
+    const char* nl = (const char*)memchr(p, '\n', (size_t)(end - p));
+    const char* e = nl ? nl : end;
+    // a '\r' before anything but the '\n' ends a line of its own
+    for (const char* r;
+         (r = (const char*)memchr(p, '\r', (size_t)(e - p))) && r + 1 < e;
+         p = r + 1)
+      add(p, r);
+    add(p, e);
+    p = e + 1;
+  }
+  return rows;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Reads the .colate_mat at path: row 0 into ages[ncols], row 1+2i into
+// shared[i] and row 2+2i into notshared[i] for i < B ([B, ncols] each,
+// row-major; the caller zero-fills them, for the replicates the file
+// lacks).  Rows past 2B, and a last shared row without its not-shared
+// row, are parsed, as np.loadtxt does, and dropped.
+// *width gets row 0's number of values; where that is not ncols nothing
+// more is read and 0 is returned.  Otherwise returns the workers that
+// parsed the rows (at most the CPUs the process may run on), -1 where
+// the file cannot be read, or -2 where it is not a matrix of numbers,
+// with the file and the 1-based line in errbuf.
+int cn_colate_mat_read(const char* path, int64_t B, int64_t ncols,
+                       double* ages, double* shared, double* notshared,
+                       int64_t* width, char* errbuf, int errlen) {
+  MappedFile f;
+  std::string err;
+  if (!f.open(path, err)) {
+    snprintf(errbuf, errlen, "%s", err.c_str());
+    return -1;
+  }
+  const std::vector<ColateMatLine> rows = cm_rows(f.data, f.size);
+  if (rows.empty()) {
+    snprintf(errbuf, errlen, "%s: line 1: no data", path);
+    return -2;
+  }
+  *width = cm_row(rows[0], ages, ncols, &err);
+  if (*width < 0) {
+    snprintf(errbuf, errlen, "%s: %s", path, err.c_str());
+    return -2;
+  }
+  if (*width != ncols) return 0;
+
+  const int64_t n = (int64_t)rows.size();
+  cpu_set_t cpus;
+  const int64_t allowed =
+      sched_getaffinity(0, sizeof cpus, &cpus) == 0 ? CPU_COUNT(&cpus) : 1;
+  const int64_t nw = std::max<int64_t>(
+      1, std::min(allowed, (n - 1) / kColateMatRowsPerWorker));
+  std::atomic<int64_t> next{1};
+  // each worker's first failure: its line (INT64_MAX: none) and message
+  std::vector<std::pair<int64_t, std::string>> fail(nw, {INT64_MAX, ""});
+  auto work = [&](int64_t w) {
+    for (;;) {
+      const int64_t r0 = next.fetch_add(kColateMatChunk);
+      if (r0 >= n) return;
+      for (int64_t r = r0; r < std::min(n, r0 + kColateMatChunk); r++) {
+        // a replicate whose not-shared row is missing is dropped whole
+        const int64_t i = (r - 1) / 2;
+        double* out = i >= B || 2 + 2 * i >= n
+                          ? nullptr
+                          : (r % 2 ? shared : notshared) + i * ncols;
+        std::string e;
+        const int64_t k = cm_row(rows[r], out, ncols, &e);
+        const int64_t line = rows[r].line;
+        if (k == ncols || line >= fail[w].first) continue;
+        if (k >= 0)
+          e = "line " + std::to_string(line) + ": " + std::to_string(k) +
+              " values, where line " + std::to_string(rows[0].line) +
+              " has " + std::to_string(ncols);
+        fail[w] = {line, e};
+      }
+    }
+  };
+  std::vector<std::thread> th;
+  for (int64_t w = 1; w < nw; w++) th.emplace_back(work, w);
+  work(0);
+  for (auto& t : th) t.join();
+  const auto first = std::min_element(fail.begin(), fail.end());
+  if (first->first != INT64_MAX) {
+    snprintf(errbuf, errlen, "%s: %s", path, first->second.c_str());
+    return -2;
+  }
+  return (int)nw;
+}
+
+}  // extern "C"

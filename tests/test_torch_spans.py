@@ -37,7 +37,7 @@ STAGES = {
 }
 COUNTERS = {
     "first_pass": {"cpus_allowed", "prefilter_workers", "join_bin_workers"},
-    "rerun": {"cpus_allowed"},
+    "rerun": {"cpus_allowed", "colate_mat_workers"},
 }
 
 
@@ -194,6 +194,8 @@ def test_a_job_carries_every_stage_and_counter(jobs, kind):
     if kind == "first_pass":
         joins = [s for s in res.spans if s.name == "join_bin.join"]
         assert sum(s.args["sites"] for s in joins) == res.num_sites
+    else:
+        assert 1 <= res.counters["colate_mat_workers"] <= res.counters["cpus_allowed"]
 
 
 def test_the_done_record_carries_the_counters(fix, tmp_path, monkeypatch, capsys):
@@ -208,6 +210,24 @@ def test_the_done_record_carries_the_counters(fix, tmp_path, monkeypatch, capsys
     (done,) = [r for r in recs if r["event"] == "mut_done"]
     assert done["counters"] == res.counters
     assert set(done["counters"]) == COUNTERS["first_pass"]
+
+
+def test_the_rerun_done_record_carries_the_reader_workers(tmp_path, monkeypatch, capsys):
+    """A rerun's ``mut_done`` record holds ``colate_mat_workers``, how wide
+    the ``.colate_mat`` read ran, beside ``cpus_allowed``."""
+    monkeypatch.setenv("COLATE_TPU_LOG", "json")
+    rng = np.random.default_rng(6)
+    write_colate_mat(str(tmp_path / "again.colate_mat"), age_bin_centers(),
+                     *rng.uniform(0.0, 2.0, (2, 4, NUM_AGE_BINS)))
+    capsys.readouterr()
+    res = _job(None, str(tmp_path / "again"), "--target_bcf", str(tmp_path / "absent"),
+               "--target_age", "8000")
+    recs = [json.loads(line) for line in capsys.readouterr().err.splitlines()
+            if line.startswith("{")]
+    (done,) = [r for r in recs if r["event"] == "mut_done"]
+    assert done["counters"] == res.counters
+    assert set(done["counters"]) == COUNTERS["rerun"]
+    assert done["counters"]["colate_mat_workers"] >= 1
 
 
 @pytest.mark.parametrize("kind", ["first_pass", "rerun"])
