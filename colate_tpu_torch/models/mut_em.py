@@ -48,11 +48,14 @@ mc_parity``, nor does ``--devices``.
 One ``utils/progress.py:StageTimer`` records a job's spans and counters on
 ``time.perf_counter_ns`` (``MutResult.timings``, ``spans``, ``counters``):
 the stages ``parse`` (holding ``prefilter`` and ``join_bin`` on the fused
-path, with the native library's spans per chromosome, shard and worker),
-``binning``, ``colate_mat_read`` (a rerun), ``bootstrap``, ``epochs``,
-``em`` and ``coal_write``; the counters ``cpus_allowed`` and, on the
-fused path, ``prefilter_workers`` and ``join_bin_workers`` or, on a
-rerun, ``colate_mat_workers``, which the ``mut_done`` record carries
+path, with the native library's spans per chromosome, shard and worker;
+``decode`` and ``join`` on the staged ``.colate.in`` path), ``binning``
+(holding ``bin_prep`` and ``bin_device`` under ``--binning device``),
+``colate_mat_read`` (a rerun), ``bootstrap``, ``epochs``, ``em`` and
+``coal_write``; the counters ``cpus_allowed`` and, on the fused path,
+``prefilter_workers`` and ``join_bin_workers``, under ``--binning
+device`` ``sites_binned``, ``bin_chunks`` and ``bin_h2d_bytes``, or, on
+a rerun, ``colate_mat_workers``, which the ``mut_done`` record carries
 (rows, sites and iterations are in the spans' args and the result).
 ``COLATE_TPU_TRACE=<dir>`` writes a torch.profiler trace of the whole job
 of :func:`run_mut_and_write` into ``<dir>``: the stages as
@@ -213,7 +216,7 @@ def compute_suffstats(
         # growing with the genome (no fixed block cap)
         mc_hists = GrowableBlockHists(NUM_AGE_BINS) if kind == "bcf_split" and parity else None
         sites = join_sites(cfg, chroms, mut_files, tmask_files, rmask_files, age, ref_age,
-                           rng if parity else MT19937(seed), mc_hists)
+                           rng if parity else MT19937(seed), mc_hists, recorder=st)
 
     with st.stage("binning"):
         # every parser forces age=0 (e.g. coal.cpp:597-598, 2073-2074)
@@ -228,7 +231,7 @@ def compute_suffstats(
             devices = make_mesh(cfg.devices, device.type) if cfg.devices else [device]
             hists = sharded_bin_sites(devices, sites, 0.0)
         elif bins_on_device(cfg):
-            hists = bin_sites_analytic(sites, 0.0, device)
+            hists = bin_sites_analytic(sites, 0.0, device, recorder=st)
         else:
             hists = bin_sites_analytic_native(sites, age=0.0)
     return (*hists, len(sites), sites.num_blocks)
@@ -244,12 +247,14 @@ def _masks(files):
 
 
 def join_sites(cfg: MutRunConfig, chroms, mut_files, tmask_files, rmask_files,
-               age: float, ref_age: float, split_rng, mc_hists=None):
+               age: float, ref_age: float, split_rng, mc_hists=None,
+               recorder: StageTimer | None = None):
     """The accepted sites (a ``JoinedSites``) of cfg's inputs over the given
     chromosomes, by the parser :func:`input_kind` names; ``split_rng``
     draws the single BCF's haplotype split, and bins its sites into
     ``mc_hists`` as it goes when that is given (colate_tpu/models/
-    mut_em.py:117-248)."""
+    mut_em.py:117-248).  The staged ``.colate.in`` join records its
+    stages into ``recorder``."""
     def per_chr(prefix, ext):
         if prefix is None:
             return None
@@ -293,7 +298,7 @@ def join_sites(cfg: MutRunConfig, chroms, mut_files, tmask_files, rmask_files,
             per_chr(cfg.ref_genome, ".fa"), **bam,
         )
     return _join_staged(cfg, chroms, mut_files, _masks(tmask_files), _masks(rmask_files), age,
-                        ref_age)
+                        ref_age, StageTimer() if recorder is None else recorder)
 
 
 def _ages(cfg: MutRunConfig):
@@ -387,17 +392,21 @@ def join_inputs(cfg: MutRunConfig):
                       MT19937(cfg.seed if cfg.seed is not None else 0))
 
 
-def _join_staged(cfg: MutRunConfig, chroms, mut_files, tmasks, rmasks, age, ref_age):
-    """Whole-file decode of both streams and the .mut tables, then the join."""
+def _join_staged(cfg: MutRunConfig, chroms, mut_files, tmasks, rmasks, age, ref_age,
+                 st: StageTimer):
+    """Whole-file decode of both streams and the .mut tables (the stage
+    ``decode``), then the join (``join``)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=4) as ex:
-        fut_t = ex.submit(read_colate_in, cfg.target_tmp)
-        fut_r = ex.submit(read_colate_in, cfg.reference_tmp)
-        target = fut_t.result()
-        reference = fut_r.result()
-    mut_tables = [MutTable.read(f) for f in mut_files]
-    return join_tmptmp(chroms, mut_tables, target, reference, tmasks, rmasks, age, ref_age)
+    with st.stage("decode"):
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            fut_t = ex.submit(read_colate_in, cfg.target_tmp)
+            fut_r = ex.submit(read_colate_in, cfg.reference_tmp)
+            target = fut_t.result()
+            reference = fut_r.result()
+        mut_tables = [MutTable.read(f) for f in mut_files]
+    with st.stage("join"):
+        return join_tmptmp(chroms, mut_tables, target, reference, tmasks, rmasks, age, ref_age)
 
 
 def bootstrap_counts(cfg: MutRunConfig, stats, seed: int, rng=None):

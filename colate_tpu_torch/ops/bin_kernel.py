@@ -149,6 +149,11 @@ class SiteStream:
     def n_segs(self) -> int:
         return int(self.seg_first.shape[0]) - 1
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the site columns and the chunk table."""
+        return sum(getattr(self, name).nbytes for name in ("fv", "meta", *self.TABLE))
+
     def to(self, device) -> "SiteStream":
         """The stream on ``device``; the copies are asynchronous from
         pinned memory."""

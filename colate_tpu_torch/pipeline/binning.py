@@ -41,6 +41,7 @@ from colate_tpu_torch.config import (
 )
 from colate_tpu_torch.hostrng import MT19937
 from colate_tpu_torch.pipeline.join import JoinedSites
+from colate_tpu_torch.utils.progress import StageTimer
 
 # Loud upper bound on the block axis (the reference allocates 500 fixed
 # blocks and silently overruns past them, coal.cpp:3141 — we fail loudly
@@ -48,10 +49,25 @@ from colate_tpu_torch.pipeline.join import JoinedSites
 MAX_BLOCKS = 65536
 
 
-def bin_sites_analytic(sites: JoinedSites, age: float = 0.0, device: str | torch.device = "cuda"):
+def bin_sites_analytic(sites: JoinedSites, age: float = 0.0, device: str | torch.device = "cuda",
+                       recorder: StageTimer | None = None):
     """The four histograms of ``sites``, binned on ``device``.  Raises past
-    MAX_BLOCKS blocks, as the reference does."""
-    hists = bin_sites_device(sites, age, device).cpu().numpy()
+    MAX_BLOCKS blocks, as the reference does.  Into ``recorder`` go the
+    stages ``bin_prep`` (the host lays the site stream out) and
+    ``bin_device`` (its copy to the device, the binning and the copy back)
+    and the counters ``sites_binned``, ``bin_chunks`` and ``bin_h2d_bytes``
+    (the stream's bytes, which a card is sent)."""
+    from colate_tpu_torch.ops.bin_kernel import bin_chunks, site_stream
+
+    st = StageTimer() if recorder is None else recorder
+    device = torch.device(device)
+    with st.stage("bin_prep"):
+        stream = site_stream(sites, age, pin=device.type == "cuda")
+    with st.stage("bin_device"):
+        hists = bin_chunks(stream.to(device)).cpu().numpy()
+    st.count("sites_binned", stream.n_sites)
+    st.count("bin_chunks", stream.n_chunks)
+    st.count("bin_h2d_bytes", stream.nbytes)
     return tuple(np.ascontiguousarray(hists[:, j]) for j in range(4))
 
 

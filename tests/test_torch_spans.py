@@ -390,3 +390,99 @@ def test_metric_readers_are_declared():
         m = per_layer[name]
         assert m["source"] == "program_span" and m["workloads"] == [cells[kind]]
         assert os.path.exists(os.path.join(REPO, "benchmark", "metrics", name + ".py"))
+
+
+# ---- the staged .colate.in route and the device binning ------------------------------
+
+DEVICE_STAGES = {"parse": ("decode", "join"), "binning": ("bin_prep", "bin_device")}
+DEVICE_COUNTERS = {"cpus_allowed", "sites_binned", "bin_chunks", "bin_h2d_bytes"}
+
+
+@pytest.fixture(scope="module")
+def device_job(fix, tmp_path_factory):
+    """A ``--binning device`` job on the .colate.in fixture on the CPU (the
+    kernel's plain torch version), its progress records kept, and the site
+    stream of its inputs as the route lays it out."""
+    import contextlib
+    import io
+
+    from colate_tpu_torch.models.mut_em import join_inputs
+    from colate_tpu_torch.ops.bin_kernel import site_stream
+
+    out = str(tmp_path_factory.mktemp("device") / "dev")
+    argv = ["--mut", fix["mut_prefix"], "--target_tmp", fix["target"], "--reference_tmp",
+            fix["reference"], "--chr", fix["chrfile"], "--binning", "device"]
+    log = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stderr(log):
+        mp.setenv("COLATE_TPU_LOG", "json")
+        res = _job(fix, out, *argv)
+    recs = {r["event"]: r for r in map(json.loads, log.getvalue().splitlines())}
+    args = cli.build_parser().parse_args(["--mode", "mut", "--bins", "3,7,0.2", "-o", out, *argv])
+    return dict(res=res, recs=recs, stream=site_stream(join_inputs(cli.mut_config(args))))
+
+
+def test_device_route_nests_its_stages(device_job):
+    """``decode`` then ``join`` inside ``parse``, ``bin_prep`` then
+    ``bin_device`` inside ``binning``; no child outlasts its parent."""
+    res = device_job["res"]
+    spans = {}
+    for s in res.spans:
+        assert s.name not in spans, s.name      # one span each
+        spans[s.name] = s
+    for parent, (first, second) in DEVICE_STAGES.items():
+        p, a, b = spans[parent], spans[first], spans[second]
+        assert p.start_ns <= a.start_ns <= a.end_ns <= b.start_ns <= b.end_ns <= p.end_ns
+        for child in (a, b):
+            assert child.end_ns - child.start_ns <= p.end_ns - p.start_ns
+            assert res.timings[child.name] <= res.timings[parent]
+    assert spans["parse"].end_ns <= spans["binning"].start_ns
+    assert spans["binning"].end_ns <= spans["bootstrap"].start_ns
+    assert not {"prefilter", "join_bin"} & spans.keys()
+
+
+def test_device_route_counts_the_stream(device_job):
+    """The counters are the job's sites and its site stream's chunks and
+    bytes: four float32 columns and an int32 word a site, the chunk table."""
+    res, stream = device_job["res"], device_job["stream"]
+    assert set(res.counters) == DEVICE_COUNTERS
+    assert res.counters["sites_binned"] == res.num_sites == stream.n_sites > 0
+    assert res.counters["bin_chunks"] == stream.n_chunks > 0
+    table = 16 * stream.n_chunks + 4 * (stream.n_chunks + stream.n_segs + 1 + stream.num_blocks + 1)
+    assert res.counters["bin_h2d_bytes"] == stream.nbytes == 20 * stream.n_sites + table
+
+
+def test_device_route_records_its_route_and_counters(device_job):
+    recs = device_job["recs"]
+    assert recs["mut_suffstats"]["binning"] == "torch-twin:float32(cpu)"
+    assert recs["mut_done"]["counters"] == device_job["res"].counters
+
+
+def test_the_auto_route_keeps_its_spans(jobs):
+    """The fused path records none of the staged or device stages."""
+    res = jobs["first_pass"]
+    names = {s.name for s in res.spans}
+    assert not names & {"decode", "join", "bin_prep", "bin_device"}
+    assert STAGES["first_pass"] <= names and res.timings["binning"] == 0.0
+
+
+DEVICE_METRICS = {"decode_ms.device": "decode", "join_ms.device": "join",
+                  "bin_prep_ms.device": "bin_prep", "binning_ms.device": "binning"}
+
+
+@pytest.mark.parametrize("metric", sorted(DEVICE_METRICS))
+def test_device_metric_readers(device_job, metric):
+    """Each reader of the device cell's stages reads its stage's mean, and
+    None for reruns, failed jobs and a program that lacks the stage."""
+    from benchmark.harness.spec import Spec
+
+    read = Spec(REPO).reader(metric)
+    res = device_job["res"]
+    value = read(_ctx("first_pass", [res, res]))
+    assert value == pytest.approx(res.timings[DEVICE_METRICS[metric]] * 1e3) and value > 0
+    assert read(_ctx("rerun", [res, res])) is None
+    assert read(_ctx("first_pass", [res], ok=False)) is None
+
+    class Parent:  # a result of the program before the staged route's stages
+        timings = {"parse": 0.5, "bootstrap": 0.01, "em": 0.02}
+
+    assert read(_ctx("first_pass", [Parent()])) is None
