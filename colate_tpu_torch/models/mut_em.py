@@ -584,7 +584,7 @@ def run_mut_and_write(cfg: MutRunConfig, device: str | torch.device = "cuda") ->
         with st.stage("coal_write"):
             write_mut_coal(
                 cfg.output + ".coal", res.epochs, res.rates,
-                is_ancient=res.is_ancient, ep_null=res.ep_null,
+                is_ancient=res.is_ancient, ep_null=res.ep_null, recorder=st,
             )
         log_event(
             "mut_done",

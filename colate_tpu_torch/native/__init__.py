@@ -4,14 +4,16 @@ and analytic binning of mode ``mut``, the host f64 EM, the host walks of
 modes ``tree`` and ``local_ancestry`` (node ages, children, the sorted
 populate, the local-ancestry accumulation), the BCF2 decoder and the
 streaming BAM/CRAM pileup of ``hts.cpp``, the CondCoalRates walks of
-``cond.cpp`` (the analytic f64 prefix-sum walk and the f32 replay), and
-the threaded ``.colate_mat`` reader (``io.cpp:cn_colate_mat_read``).
+``cond.cpp`` (the analytic f64 prefix-sum walk and the f32 replay),
+the threaded ``.colate_mat`` reader (``io.cpp:cn_colate_mat_read``) and
+the ``.coal`` row formatter (``io.cpp:cn_coal_rows``).
 
 The sources are the JAX package's ``native/`` C++, copied whole, and all
 of them are built; ``io.cpp``'s fused prefilter and join+bin also time
 themselves per chromosome, shard and worker (:func:`span_records`), and
 ``io.cpp`` adds the ``.colate_mat`` reader, which the JAX package does
-with ``np.loadtxt``.  The library is built with ``g++`` at first use into
+with ``np.loadtxt``, and the ``.coal`` formatter, which it does with
+Python's ``f"{x:g}"``.  The library is built with ``g++`` at first use into
 ``colate_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  The build writes a temporary file and renames it into place,
@@ -241,6 +243,11 @@ def _declare(lib) -> None:
         + [P, P, P]                   # out ages, shared, notshared
         + [ctypes.POINTER(L)]         # row 0's width
         + [ctypes.c_char_p, I]        # errbuf
+    )
+    lib.cn_coal_rows.restype = L
+    lib.cn_coal_rows.argtypes = (
+        [P, L, L, L]                  # values [R, C] float64, R, C, first column
+        + [P, P, L]                   # labels [R, 2] int64 or NULL, out, its capacity
     )
 
 

@@ -2675,3 +2675,56 @@ int cn_colate_mat_read(const char* path, int64_t B, int64_t ncols,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The .coal writer (formats/coal.py): rows of float64 values as text, each
+// value as C's printf("%g") prints it in the C locale, which is also
+// Python's f"{x:g}" (6 significant digits, the shorter of fixed and
+// exponent form, trailing zeros dropped, "inf", "-inf", "-0").
+// std::to_chars is specified as that printf and reads no locale; a NaN of
+// either sign is "nan", as Python prints it, where glibc prints "-nan".
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// Writes the R rows of values ([R, C], row-major) into out[0, cap): for
+// row r, "<labels[2r]> <labels[2r+1]> " where labels ([R, 2]) is not null,
+// then values[r][first..C) joined by single spaces, then " \n".  Returns
+// the bytes written, or -1 where they do not fit in cap.
+int64_t cn_coal_rows(const double* values, int64_t R, int64_t C, int64_t first,
+                     const int64_t* labels, char* out, int64_t cap) {
+  char* p = out;
+  char* const end = out + cap;
+  for (int64_t r = 0; r < R; r++) {
+    if (labels) {
+      for (int k = 0; k < 2; k++) {
+        auto t = std::to_chars(p, end, labels[2 * r + k]);
+        if (t.ec != std::errc() || t.ptr == end) return -1;
+        p = t.ptr;
+        *p++ = ' ';
+      }
+    }
+    const double* row = values + r * C;
+    for (int64_t c = first; c < C; c++) {
+      if (c > first) {
+        if (p == end) return -1;
+        *p++ = ' ';
+      }
+      if (std::isnan(row[c])) {
+        if (end - p < 3) return -1;
+        memcpy(p, "nan", 3);
+        p += 3;
+        continue;
+      }
+      auto t = std::to_chars(p, end, row[c], std::chars_format::general, 6);
+      if (t.ec != std::errc()) return -1;
+      p = t.ptr;
+    }
+    if (end - p < 2) return -1;
+    *p++ = ' ';
+    *p++ = '\n';
+  }
+  return (int64_t)(p - out);
+}
+
+}  // extern "C"

@@ -35,9 +35,11 @@ STAGES = {
     "first_pass": {"parse", "prefilter", "join_bin", "bootstrap", "epochs", "em", "coal_write"},
     "rerun": {"colate_mat_read", "epochs", "em", "coal_write"},
 }
+# every job's .coal write (formats/coal.py:write_mut_coal)
+COAL_COUNTERS = {"coal_bytes", "coal_values"}
 COUNTERS = {
-    "first_pass": {"cpus_allowed", "prefilter_workers", "join_bin_workers"},
-    "rerun": {"cpus_allowed", "colate_mat_workers"},
+    "first_pass": {"cpus_allowed", "prefilter_workers", "join_bin_workers"} | COAL_COUNTERS,
+    "rerun": {"cpus_allowed", "colate_mat_workers"} | COAL_COUNTERS,
 }
 
 
@@ -196,6 +198,7 @@ def test_a_job_carries_every_stage_and_counter(jobs, kind):
         assert sum(s.args["sites"] for s in joins) == res.num_sites
     else:
         assert 1 <= res.counters["colate_mat_workers"] <= res.counters["cpus_allowed"]
+    assert res.counters["coal_values"] > 0 and res.counters["coal_bytes"] > 0
 
 
 def test_the_done_record_carries_the_counters(fix, tmp_path, monkeypatch, capsys):
@@ -210,6 +213,8 @@ def test_the_done_record_carries_the_counters(fix, tmp_path, monkeypatch, capsys
     (done,) = [r for r in recs if r["event"] == "mut_done"]
     assert done["counters"] == res.counters
     assert set(done["counters"]) == COUNTERS["first_pass"]
+    assert done["counters"]["coal_bytes"] == os.path.getsize(tmp_path / "logged.coal")
+    assert done["counters"]["coal_values"] > 0
 
 
 def test_the_rerun_done_record_carries_the_reader_workers(tmp_path, monkeypatch, capsys):
@@ -228,6 +233,8 @@ def test_the_rerun_done_record_carries_the_reader_workers(tmp_path, monkeypatch,
     assert done["counters"] == res.counters
     assert set(done["counters"]) == COUNTERS["rerun"]
     assert done["counters"]["colate_mat_workers"] >= 1
+    assert done["counters"]["coal_bytes"] == os.path.getsize(tmp_path / "again.coal")
+    assert done["counters"]["coal_values"] > 0
 
 
 @pytest.mark.parametrize("kind", ["first_pass", "rerun"])
@@ -395,7 +402,7 @@ def test_metric_readers_are_declared():
 # ---- the staged .colate.in route and the device binning ------------------------------
 
 DEVICE_STAGES = {"parse": ("decode", "join"), "binning": ("bin_prep", "bin_device")}
-DEVICE_COUNTERS = {"cpus_allowed", "sites_binned", "bin_chunks", "bin_h2d_bytes"}
+DEVICE_COUNTERS = {"cpus_allowed", "sites_binned", "bin_chunks", "bin_h2d_bytes"} | COAL_COUNTERS
 
 
 @pytest.fixture(scope="module")
